@@ -1,457 +1,10 @@
-// SageAttention forward for Hopper (B1-B4): one kernel templated on the
-// configuration.
-//
-// Replaces the Pallas kernel `_attn_kernel` (sageattention_tpu/ops/
-// attention.py, launched by `attention_call`) in the four configurations of
-// the flagship path:
-//   B1  Q_INT8,  static : Q quantized per row in the kernel, int8 QK^T with
-//                         exact int32 sums, static softmax p = exp2(s - C_i)
-//                         under the Cauchy-Schwarz cap C_i, bf16 PV.
-//   B2  Q_INT8,  online : the same numerics with the running max, the
-//                         fallback when the static cap underflows a row.
-//   B3  Q_BF16,  static : Q scaled (not quantized) and rounded to bf16, K
-//                         codes used as bf16, bf16 QK^T (short sequences);
-//                         Q_BF16 online is B3's own fallback.
-//   B4  Q_FLASH, online : the unquantized bf16 flash baseline.
-// Shared rules: causal with above-diagonal tiles skipped, the kv tail
-// masked beyond kv_len, GQA through h / (Hq/Hk), head dim 64 or 128.
-//
-// What bounds it on the H100: tensor-core issue rate and the exp2 of the
-// softmax (S^2 work against S*D bytes).  This first version is simple:
-// 4 warps own 64 query rows (16 each), K/V tiles of 64 rows are staged in
-// shared memory with plain loads, and the products run on mma.sync
-// (m16n8k32 s8 for B1/B2, m16n8k16 bf16 for the rest and for every PV).
-// The Q tile is converted once into registers; the P tile goes from the
-// QK^T accumulators straight into the PV A-fragments without touching
-// shared memory; V is staged as bf16 and read with ldmatrix.trans.
-// wgmma, TMA and a pipelined producer warp are later work.
-#include "common.cuh"
+// SageAttention forward with Q quantized inside the kernel (B1-B3, B5 with
+// a fused Q) and the bf16 flash baseline (B4).  The kernel itself and its
+// design notes are in attention.cuh; attention_q8.cu instantiates it for a
+// pre-quantized Q.
+#include "attention.cuh"
 
-namespace {
-
-constexpr int BQ = 64;        // query rows per block (16 per warp)
-constexpr int BK = 64;        // kv rows per tile
-constexpr int kThreads = 128;
-constexpr float MASK_NEG = -1e30f;  // added to masked scores
-constexpr float M_CLAMP = -1e20f;   // floor of the running max
-
-enum QMode { Q_INT8 = 0, Q_BF16 = 1, Q_FLASH = 2 };
-
-struct Params {
-  const void* q; const void* k; const void* v; void* o;
-  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss;
-  const float* k_head_scale;  // [B*Hk]      (quantized)
-  const float* kn_max;        // [B*Hq]      (static)
-  const float* v_scale;       // [B*Hk*D]    (quantized)
-  const float* v_mean;        // [B*Hk*D] or null
-  float* lse;                 // [B*Hq*Sq] base 2, or null
-  float* lmin;                // [B*Hq*n_qt] (static), or null
-  int Hq, Hk, Sq, kv_len, causal;
-  float fold;                 // sm_scale * log2(e)
-};
-
-__device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* smem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// E consecutive elements of a Q row as f32 (E = D/32: 2 or 4).
-template <int E>
-__device__ __forceinline__ void load_row_part(const __nv_bfloat16* p, float* x) {
-#pragma unroll
-  for (int i = 0; i < E; i += 2) {
-    float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p + i));
-    x[i] = f.x;
-    x[i + 1] = f.y;
-  }
-}
-template <int E>
-__device__ __forceinline__ void load_row_part(const float* p, float* x) {
-#pragma unroll
-  for (int i = 0; i < E; i += 2) {
-    float2 f = *reinterpret_cast<const float2*>(p + i);
-    x[i] = f.x;
-    x[i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-template <int QM, bool STATIC, int D, typename T>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
-  constexpr bool KI8 = (QM == Q_INT8);          // K stays int8 in smem
-  constexpr int I8_STRIDE = D + 16;              // bytes per int8 row (padded)
-  constexpr int BF_STRIDE = D + 8;               // elems per bf16 row (padded)
-  constexpr int ROW_BYTES = KI8 ? I8_STRIDE : BF_STRIDE * 2;
-  constexpr int KSTEPS = KI8 ? D / 32 : D / 16;  // mma k-steps over D
-  constexpr int NT_D = D / 8;                    // 8-wide n-tiles over D
-  constexpr int E = D / 32;                      // Q elems per lane per row
-
-  // sQK holds the Q tile until its fragments are in registers, then K tiles
-  __shared__ __align__(16) uint8_t sQK[BQ * ROW_BYTES];
-  __shared__ __align__(16) __nv_bfloat16 sV[BK * BF_STRIDE];
-  __shared__ float s_qscale[BQ];
-  __shared__ float s_cap[BQ];
-  __shared__ float s_lmin[kThreads / 32];
-
-  const int n_qt = (p.Sq + BQ - 1) / BQ;
-  // causal: the longest q tiles first, so the tail of the grid is short work
-  const int qt = p.causal ? (n_qt - 1 - (int)blockIdx.x) : (int)blockIdx.x;
-  const int hq = blockIdx.y, b = blockIdx.z;
-  const int hk = hq / (p.Hq / p.Hk);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qt * BQ;
-
-  // ---------------- Q tile: quantize (B1/B2), scale (B3) or copy (B4) ----
-  {
-    const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const float ksh = (QM != Q_FLASH) ? p.k_head_scale[b * p.Hk + hk] : 1.f;
-    const float knmax = STATIC ? p.kn_max[b * p.Hq + hq] : 0.f;
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr, gr = q0 + r;
-      float x[E];
-      if (gr < p.Sq) {
-        load_row_part<E>(qb + gr * p.q_ss + lane * E, x);
-      } else {
-#pragma unroll
-        for (int i = 0; i < E; ++i) x[i] = 0.f;
-      }
-      if (QM == Q_FLASH) {
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + lane * E;
-#pragma unroll
-        for (int i = 0; i < E; i += 2) store2(dst + i, x[i], x[i + 1]);
-      } else if (QM == Q_INT8) {
-        float qf[E], a = 0.f;
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-          qf[i] = __fmul_rn(x[i], p.fold);
-          a = fmaxf(a, fabsf(qf[i]));
-        }
-        a = sage::warp_max(a);
-        const float qs = a > 0.f ? __fmul_rn(a, (float)(1.0 / 127.0)) : 1.f;
-        const float inv = __fdiv_rn(1.f, qs);
-        float n2 = 0.f;
-        int8_t* dst = reinterpret_cast<int8_t*>(sQK + r * ROW_BYTES) + lane * E;
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-          const float c = sage::code_i8(__fmul_rn(qf[i], inv));
-          n2 += c * c;  // exact integer sum
-          dst[i] = (int8_t)c;
-        }
-        n2 = sage::warp_sum(n2);
-        if (lane == 0) {
-          const float qse = __fmul_rn(qs, ksh);
-          s_qscale[r] = qse;
-          if (STATIC)
-            s_cap[r] = __fmul_rn(__fmul_rn(qse, sqrtf(n2)),
-                                 __fmul_rn(knmax, (float)(1.0 + 1e-5)));
-        }
-      } else {  // Q_BF16: qe = q * fold * ks, rounded to bf16, never quantized
-        float qe[E], n2 = 0.f;
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-          qe[i] = __fmul_rn(__fmul_rn(x[i], p.fold), ksh);
-          n2 += qe[i] * qe[i];
-        }
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + lane * E;
-#pragma unroll
-        for (int i = 0; i < E; i += 2) store2(dst + i, qe[i], qe[i + 1]);
-        n2 = sage::warp_sum(n2);
-        if (lane == 0 && STATIC)
-          s_cap[r] = __fmul_rn(sqrtf(n2), __fmul_rn(knmax, (float)(1.0 + 1.0 / 128.0)));
-      }
-    }
-  }
-  __syncthreads();
-
-  // this thread's two rows inside the warp's 16-row slab
-  const int rA = warp * 16 + g, rB = rA + 8;
-  uint32_t qa[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    if (KI8) {
-      const uint8_t* base = sQK + ks * 32 + 4 * t;
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES + 16);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES + 16);
-    } else {
-      const uint8_t* base = sQK + (ks * 16 + 2 * t) * 2;
-      qa[ks][0] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES);
-      qa[ks][1] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES);
-      qa[ks][2] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES + 16);
-      qa[ks][3] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES + 16);
-    }
-  }
-  const float qseA = KI8 ? s_qscale[rA] : 1.f, qseB = KI8 ? s_qscale[rB] : 1.f;
-  float mA = STATIC ? s_cap[rA] : M_CLAMP, mB = STATIC ? s_cap[rB] : M_CLAMP;
-  float lA = 0.f, lB = 0.f;
-  float acc[NT_D][4];
-#pragma unroll
-  for (int n = 0; n < NT_D; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  int n_kt = (p.kv_len + BK - 1) / BK;
-  if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.Sq) - 1) / BK + 1);
-  const uint8_t* kbase = static_cast<const uint8_t*>(p.k);
-  const uint8_t* vbase = static_cast<const uint8_t*>(p.v);
-  constexpr int KV_ELEM = (QM == Q_FLASH) ? 2 : 1;  // bytes per stored K/V elem
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // the previous tile (or the Q tile) has been consumed
-    // ---- stage K and V: 16 bytes of global memory per thread per step ----
-    constexpr int CH = D * KV_ELEM / 16;  // 16-byte chunks per row
-    for (int idx = tid; idx < BK * CH; idx += kThreads) {
-      const int r = idx / CH, c = idx % CH;
-      const int gr = k0 + r;
-      uint4 kq = make_uint4(0, 0, 0, 0), vq = make_uint4(0, 0, 0, 0);
-      if (gr < p.kv_len) {
-        const long long ko = (b * p.k_sb + hk * p.k_sh + gr * p.k_ss) * KV_ELEM + c * 16;
-        const long long vo = (b * p.v_sb + hk * p.v_sh + gr * p.v_ss) * KV_ELEM + c * 16;
-        kq = *reinterpret_cast<const uint4*>(kbase + ko);
-        vq = *reinterpret_cast<const uint4*>(vbase + vo);
-      }
-      if (QM == Q_FLASH) {
-        *reinterpret_cast<uint4*>(sQK + r * ROW_BYTES + c * 16) = kq;
-        *reinterpret_cast<uint4*>(sV + r * BF_STRIDE + c * 8) = vq;
-      } else {
-        if (KI8) {
-          *reinterpret_cast<uint4*>(sQK + r * ROW_BYTES + c * 16) = kq;
-        } else {  // int8 codes -> bf16 (exact)
-          const int8_t* kc = reinterpret_cast<const int8_t*>(&kq);
-          __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + c * 16;
-#pragma unroll
-          for (int i = 0; i < 16; i += 2) store2(dst + i, (float)kc[i], (float)kc[i + 1]);
-        }
-        const int8_t* vc = reinterpret_cast<const int8_t*>(&vq);
-        __nv_bfloat16* vd = sV + r * BF_STRIDE + c * 16;
-#pragma unroll
-        for (int i = 0; i < 16; i += 2) store2(vd + i, (float)vc[i], (float)vc[i + 1]);
-      }
-    }
-    __syncthreads();
-
-    // ---- S = Q K^T for the warp's 16 rows x 64 columns ----
-    float s[8][4];
-    if (KI8) {
-      int si[8][4];
-#pragma unroll
-      for (int n = 0; n < 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const uint8_t* kr = sQK + (n * 8 + g) * ROW_BYTES + ks * 32 + 4 * t;
-          mma_s8(si[n], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 16));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        s[n][0] = __fmul_rn((float)si[n][0], qseA);
-        s[n][1] = __fmul_rn((float)si[n][1], qseA);
-        s[n][2] = __fmul_rn((float)si[n][2], qseB);
-        s[n][3] = __fmul_rn((float)si[n][3], qseB);
-      }
-    } else {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const uint8_t* kr = sQK + (n * 8 + g) * ROW_BYTES + (ks * 16 + 2 * t) * 2;
-          mma_bf16(s[n], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
-                   *reinterpret_cast<const uint32_t*>(kr + 16));
-        }
-      }
-      if (QM == Q_FLASH) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) s[n][i] = __fmul_rn(s[n][i], p.fold);
-      }
-    }
-
-    // ---- masks: kv tail and causal, only on tiles that straddle them ----
-    const bool tail = k0 + BK > p.kv_len;
-    const bool diag = p.causal && (k0 + BK - 1 > q0);
-    if (tail || diag) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int col = k0 + n * 8 + 2 * t + (i & 1);
-          const int row = q0 + (i < 2 ? rA : rB);
-          if (col >= p.kv_len || (p.causal && col > row)) s[n][i] = MASK_NEG;
-        }
-    }
-
-    // ---- softmax ----
-    if (STATIC) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        s[n][0] = exp2f(__fsub_rn(s[n][0], mA));
-        s[n][1] = exp2f(__fsub_rn(s[n][1], mA));
-        s[n][2] = exp2f(__fsub_rn(s[n][2], mB));
-        s[n][3] = exp2f(__fsub_rn(s[n][3], mB));
-        lA += s[n][0] + s[n][1];
-        lB += s[n][2] + s[n][3];
-      }
-    } else {
-      float cA = -3e38f, cB = -3e38f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        cA = fmaxf(cA, fmaxf(s[n][0], s[n][1]));
-        cB = fmaxf(cB, fmaxf(s[n][2], s[n][3]));
-      }
-      cA = sage::warp_max(cA, 4);  // the 4 lanes of a quad share a row
-      cB = sage::warp_max(cB, 4);
-      const float nA = fmaxf(fmaxf(mA, cA), M_CLAMP), nB = fmaxf(fmaxf(mB, cB), M_CLAMP);
-      const float aA = exp2f(__fsub_rn(mA, nA)), aB = exp2f(__fsub_rn(mB, nB));
-      mA = nA;
-      mB = nB;
-      float pA = 0.f, pB = 0.f;
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        s[n][0] = exp2f(__fsub_rn(s[n][0], mA));
-        s[n][1] = exp2f(__fsub_rn(s[n][1], mA));
-        s[n][2] = exp2f(__fsub_rn(s[n][2], mB));
-        s[n][3] = exp2f(__fsub_rn(s[n][3], mB));
-        pA += s[n][0] + s[n][1];
-        pB += s[n][2] + s[n][3];
-      }
-      lA = __fadd_rn(__fmul_rn(aA, lA), pA);
-      lB = __fadd_rn(__fmul_rn(aB, lB), pB);
-#pragma unroll
-      for (int n = 0; n < NT_D; ++n) {
-        acc[n][0] = __fmul_rn(acc[n][0], aA);
-        acc[n][1] = __fmul_rn(acc[n][1], aA);
-        acc[n][2] = __fmul_rn(acc[n][2], aB);
-        acc[n][3] = __fmul_rn(acc[n][3], aB);
-      }
-    }
-
-    // ---- O += bf16(P) @ bf16(V) ----
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int nd = 0; nd < D / 16; ++nd) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, sV + (kk * 16 + (lane & 15)) * BF_STRIDE + nd * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * nd], pa, vb[0], vb[1]);
-        mma_bf16(acc[2 * nd + 1], pa, vb[2], vb[3]);
-      }
-    }
-  }
-
-  // ---------------- epilogue ----------------
-  lA += __shfl_xor_sync(0xffffffffu, lA, 1);
-  lA += __shfl_xor_sync(0xffffffffu, lA, 2);
-  lB += __shfl_xor_sync(0xffffffffu, lB, 1);
-  lB += __shfl_xor_sync(0xffffffffu, lB, 2);
-  const float invA = __fdiv_rn(1.f, lA == 0.f ? 1.f : lA);
-  const float invB = __fdiv_rn(1.f, lB == 0.f ? 1.f : lB);
-  const int growA = q0 + rA, growB = q0 + rB;
-  T* ob = static_cast<T*>(p.o) + b * p.o_sb + hq * p.o_sh;
-  const float* vs = (QM != Q_FLASH) ? p.v_scale + (long long)(b * p.Hk + hk) * D : nullptr;
-  const float* vm = p.v_mean ? p.v_mean + (long long)(b * p.Hk + hk) * D : nullptr;
-#pragma unroll
-  for (int n = 0; n < NT_D; ++n) {
-    const int c = n * 8 + 2 * t;
-    float o[4] = {__fmul_rn(acc[n][0], invA), __fmul_rn(acc[n][1], invA),
-                  __fmul_rn(acc[n][2], invB), __fmul_rn(acc[n][3], invB)};
-    if (QM != Q_FLASH) {
-      o[0] = __fmul_rn(o[0], vs[c]);
-      o[1] = __fmul_rn(o[1], vs[c + 1]);
-      o[2] = __fmul_rn(o[2], vs[c]);
-      o[3] = __fmul_rn(o[3], vs[c + 1]);
-    }
-    if (vm) {
-      o[0] = __fadd_rn(o[0], vm[c]);
-      o[1] = __fadd_rn(o[1], vm[c + 1]);
-      o[2] = __fadd_rn(o[2], vm[c]);
-      o[3] = __fadd_rn(o[3], vm[c + 1]);
-    }
-    if (growA < p.Sq) store2(ob + growA * p.o_ss + c, o[0], o[1]);
-    if (growB < p.Sq) store2(ob + growB * p.o_ss + c, o[2], o[3]);
-  }
-  if (p.lse && t == 0) {
-    float* lse = p.lse + (long long)(b * p.Hq + hq) * p.Sq;
-    if (growA < p.Sq) lse[growA] = mA + log2f(fmaxf(lA, 1e-37f));
-    if (growB < p.Sq) lse[growB] = mB + log2f(fmaxf(lB, 1e-37f));
-  }
-  if (STATIC && p.lmin) {
-    float lm = fminf(growA < p.Sq ? lA : 3e38f, growB < p.Sq ? lB : 3e38f);
-    lm = sage::warp_min(lm);
-    if (lane == 0) s_lmin[warp] = lm;
-    __syncthreads();
-    if (tid == 0) {
-      float m = s_lmin[0];
-      for (int w = 1; w < kThreads / 32; ++w) m = fminf(m, s_lmin[w]);
-      p.lmin[(long long)(b * p.Hq + hq) * n_qt + qt] = m;
-    }
-  }
-}
-
-template <int QM, bool STATIC, typename T>
-int launch_d(int D, const Params& p, dim3 grid, cudaStream_t st) {
-  if (D == 64)
-    attn_fwd_kernel<QM, STATIC, 64, T><<<grid, kThreads, 0, st>>>(p);
-  else if (D == 128)
-    attn_fwd_kernel<QM, STATIC, 128, T><<<grid, kThreads, 0, st>>>(p);
-  else
-    return -1;
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_t(int qmode, int static_sm, int D, const Params& p, dim3 grid, cudaStream_t st) {
-  if (qmode == Q_INT8)
-    return static_sm ? launch_d<Q_INT8, true, T>(D, p, grid, st)
-                     : launch_d<Q_INT8, false, T>(D, p, grid, st);
-  if (qmode == Q_BF16)
-    return static_sm ? launch_d<Q_BF16, true, T>(D, p, grid, st)
-                     : launch_d<Q_BF16, false, T>(D, p, grid, st);
-  return -1;
-}
-
-}  // namespace
+using namespace sage_attn;
 
 extern "C" {
 
@@ -460,39 +13,34 @@ const char* sage_attn_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// qmode: 0 = int8 Q (B1/B2), 1 = bf16 compute (B3), 2 = flash (B4).
-// dtype of q and o: 0 = bfloat16, 1 = float32 (flash: bfloat16 only).
-// Strides are in elements; K/V are int8 codes unless qmode == 2.
-int sage_attn_fwd(int qmode, int static_sm, int dtype, int D, const void* q, const void* k,
-                  const void* v, void* o, long long q_sb, long long q_sh, long long q_ss,
-                  long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-                  long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-                  long long o_ss, const float* k_head_scale, const float* kn_max,
+// qmode: 0 = int8 Q quantized here, 1 = bf16 compute, 2 = flash.
+// pv: 0 = bf16 P / int8 V, 1 = bf16 P / bf16 V, 2 = int8 P / int8 V,
+// 3 = e4m3 P / e4m3 V.  in_dtype (of q) = out_dtype: 0 = bfloat16,
+// 1 = float32 (flash: bfloat16 only).  Strides are in elements of each
+// tensor's own type; K is int8 codes unless qmode == 2.
+int sage_attn_fwd(int qmode, int static_sm, int pv, int in_dtype, int out_dtype, int D,
+                  const void* q, const void* k, const void* v, void* o, long long q_sb,
+                  long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+                  long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+                  long long o_sb, long long o_sh, long long o_ss, const float* q_scale,
+                  const float* k_scale, const float* k_head_scale, const float* kn_max,
                   const float* v_scale, const float* v_mean, float* lse, float* lmin, int B,
-                  int Hq, int Hk, int Sq, int kv_len, int causal, float fold, void* stream) {
-  Params p;
-  p.q = q; p.k = k; p.v = v; p.o = o;
-  p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
-  p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
-  p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
-  p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.k_head_scale = k_head_scale; p.kn_max = kn_max;
-  p.v_scale = v_scale; p.v_mean = v_mean; p.lse = lse; p.lmin = lmin;
-  p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.kv_len = kv_len; p.causal = causal; p.fold = fold;
-  dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+                  int Hq, int Hk, int Sq, int Sk, int kv_len, int causal, float fold,
+                  void* stream) {
+  const long long st[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  const Params p = make_params(q, k, v, o, st, q_scale, k_scale, k_head_scale, kn_max, v_scale,
+                               v_mean, lse, lmin, Hq, Hk, Sq, Sk, kv_len, causal, fold);
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (in_dtype != out_dtype || q_scale) return -1;
   if (qmode == Q_FLASH) {
-    if (static_sm || dtype != 0) return -1;
-    if (D == 64)
-      attn_fwd_kernel<Q_FLASH, false, 64, __nv_bfloat16><<<grid, kThreads, 0, st>>>(p);
-    else if (D == 128)
-      attn_fwd_kernel<Q_FLASH, false, 128, __nv_bfloat16><<<grid, kThreads, 0, st>>>(p);
-    else
-      return -1;
-    return (int)cudaGetLastError();
+    if (static_sm || in_dtype != 0) return -1;
+    return Launcher<__nv_bfloat16, __nv_bfloat16>{p, grid, s}
+        .d<Q_FLASH, false, PV_BF16P_BF16V>(D);
   }
-  if (dtype == 0) return launch_t<__nv_bfloat16>(qmode, static_sm, D, p, grid, st);
-  if (dtype == 1) return launch_t<float>(qmode, static_sm, D, p, grid, st);
+  if (in_dtype == 0)
+    return Launcher<__nv_bfloat16, __nv_bfloat16>{p, grid, s}.run(qmode, pv, static_sm, D);
+  if (in_dtype == 1) return Launcher<float, float>{p, grid, s}.run(qmode, pv, static_sm, D);
   return -1;
 }
 

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -58,6 +59,81 @@ __device__ __forceinline__ float warp_min(float v, int width = 32) {
 // x >= 0); the order of the atomics cannot change the result.
 __device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
   atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
+}
+
+// ---- per-channel statistics over a [S, D] slice, split along the rows ----
+// Thread layout shared by the row-wise kernels: D/8 consecutive lanes cover
+// one row (8 channels each), so a block of kStatThreads walks
+// kStatThreads / (D/8) rows at a time.
+constexpr int kStatThreads = 256;
+constexpr int kStatRows = 256;  // rows of one slice per stats block
+
+// Every (slice, kStatRows-row chunk) block writes its partial per-channel
+// sum / max / min over the true rows r < s_true to
+// p*[(bh * gridDim.x + chunk) * D + c].  A second pass reduces the partials
+// of a slice in a fixed order, so every reader agrees bit for bit.
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+stats_partial_kernel(const T* __restrict__ x, long long sb, long long sh, long long ss,
+                     int H, int s_true, int D, float* __restrict__ psum,
+                     float* __restrict__ pmax, float* __restrict__ pmin) {
+  __shared__ float red[3][kStatThreads * 8];
+  const int bh = blockIdx.y, split = blockIdx.x, nsplit = gridDim.x;
+  const int b = bh / H, h = bh % H;
+  const int cpr = D / 8, rpi = kStatThreads / cpr;
+  const int tr = threadIdx.x / cpr, cg = threadIdx.x % cpr;
+  const T* base = x + b * sb + h * sh + cg * 8;
+  const int r0 = split * kStatRows;
+  const int r1 = min(r0 + kStatRows, s_true);
+  float s[8], mx[8], mn[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) { s[i] = 0.f; mx[i] = -3e38f; mn[i] = 3e38f; }
+  for (int r = r0 + tr; r < r1; r += rpi) {
+    float v[8];
+    load8(base + r * ss, v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      s[i] += v[i];
+      mx[i] = fmaxf(mx[i], v[i]);
+      mn[i] = fminf(mn[i], v[i]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    red[0][tr * D + cg * 8 + i] = s[i];
+    red[1][tr * D + cg * 8 + i] = mx[i];
+    red[2][tr * D + cg * 8 + i] = mn[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < D) {
+    const int c = threadIdx.x;
+    float a = 0.f, hi = -3e38f, lo = 3e38f;
+    for (int j = 0; j < rpi; ++j) {
+      a += red[0][j * D + c];
+      hi = fmaxf(hi, red[1][j * D + c]);
+      lo = fminf(lo, red[2][j * D + c]);
+    }
+    const long long o = ((long long)bh * nsplit + split) * D + c;
+    psum[o] = a;
+    pmax[o] = hi;
+    pmin[o] = lo;
+  }
+}
+
+// Channel c of slice bh from its nsplit partials, in a fixed order:
+// mean = sum * (1 / s_true), amax = max(max - mean, mean - min).
+__device__ __forceinline__ void stats_finish(const float* psum, const float* pmax,
+                                             const float* pmin, int bh, int nsplit, int D,
+                                             int c, float inv_s, float* mean, float* amax) {
+  float a = 0.f, hi = -3e38f, lo = 3e38f;
+  for (int j = 0; j < nsplit; ++j) {
+    const long long o = ((long long)bh * nsplit + j) * D + c;
+    a += psum[o];
+    hi = fmaxf(hi, pmax[o]);
+    lo = fminf(lo, pmin[o]);
+  }
+  *mean = __fmul_rn(a, inv_s);
+  *amax = fmaxf(__fsub_rn(hi, *mean), __fsub_rn(*mean, lo));
 }
 
 }  // namespace sage

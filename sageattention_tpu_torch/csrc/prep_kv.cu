@@ -15,7 +15,7 @@
 // the whole slice in VMEM (up to 36,864 x 128); an H100 block has 227 KB of
 // shared memory and cannot, and one block per slice would leave most of the
 // 132 SMs idle at 48 heads.  So the work is split along the rows:
-//   1. prep_stats_kernel: every (slice, 256-row chunk) block writes its
+//   1. sage::stats_partial_kernel (common.cuh): every (slice, 256-row chunk) block writes its
 //      partial per-channel sum / max / min to a scratch buffer;
 //   2. prep_quant_kernel: every block reduces the (few) partials of its
 //      slice in a fixed order, so all blocks of a slice agree bit for bit on
@@ -26,58 +26,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 256;  // rows of one slice handled by one block
-
-// Thread layout: D/8 consecutive lanes cover one row (8 channels each), so
-// a block walks kThreads / (D/8) rows at a time.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-prep_stats_kernel(const T* __restrict__ x, long long sb, long long sh, long long ss,
-                  int H, int s_true, int D, float* __restrict__ psum,
-                  float* __restrict__ pmax, float* __restrict__ pmin) {
-  __shared__ float red[3][kThreads * 8];
-  const int bh = blockIdx.y, split = blockIdx.x, nsplit = gridDim.x;
-  const int b = bh / H, h = bh % H;
-  const int cpr = D / 8, rpi = kThreads / cpr;
-  const int tr = threadIdx.x / cpr, cg = threadIdx.x % cpr;
-  const T* base = x + b * sb + h * sh + cg * 8;
-  const int r0 = split * kRows;
-  const int r1 = min(r0 + kRows, s_true);
-  float s[8], mx[8], mn[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) { s[i] = 0.f; mx[i] = -3e38f; mn[i] = 3e38f; }
-  for (int r = r0 + tr; r < r1; r += rpi) {
-    float v[8];
-    sage::load8(base + r * ss, v);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      s[i] += v[i];
-      mx[i] = fmaxf(mx[i], v[i]);
-      mn[i] = fminf(mn[i], v[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    red[0][tr * D + cg * 8 + i] = s[i];
-    red[1][tr * D + cg * 8 + i] = mx[i];
-    red[2][tr * D + cg * 8 + i] = mn[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < D) {
-    const int c = threadIdx.x;
-    float a = 0.f, hi = -3e38f, lo = 3e38f;
-    for (int j = 0; j < rpi; ++j) {
-      a += red[0][j * D + c];
-      hi = fmaxf(hi, red[1][j * D + c]);
-      lo = fminf(lo, red[2][j * D + c]);
-    }
-    const long long o = ((long long)bh * nsplit + split) * D + c;
-    psum[o] = a;
-    pmax[o] = hi;
-    pmin[o] = lo;
-  }
-}
+constexpr int kThreads = sage::kStatThreads;
+constexpr int kRows = sage::kStatRows;  // rows of one slice handled by one block
 
 template <typename T, bool PER_CHANNEL, bool CAPMAX>
 __global__ void __launch_bounds__(kThreads)
@@ -92,15 +42,8 @@ prep_quant_kernel(const T* __restrict__ x, long long sb, long long sh, long long
   const int b = bh / H, h = bh % H;
   if (threadIdx.x < D) {
     const int c = threadIdx.x;
-    float a = 0.f, hi = -3e38f, lo = 3e38f;
-    for (int j = 0; j < nsplit; ++j) {
-      const long long o = ((long long)bh * nsplit + j) * D + c;
-      a += psum[o];
-      hi = fmaxf(hi, pmax[o]);
-      lo = fminf(lo, pmin[o]);
-    }
-    const float mean = __fmul_rn(a, inv_s);
-    const float amax = fmaxf(__fsub_rn(hi, mean), __fsub_rn(mean, lo));
+    float mean, amax;
+    sage::stats_finish(psum, pmax, pmin, bh, nsplit, D, c, inv_s, &mean, &amax);
     s_mean[c] = mean;
     s_amax[c] = amax;
     if (split == 0) {
@@ -171,7 +114,7 @@ int launch_prep(bool per_channel, bool capmax, const void* x, long long sb, long
                 float* amax_out, float* cap_out, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   dim3 grid_stats((s_true + kRows - 1) / kRows, B * H);
-  prep_stats_kernel<T><<<grid_stats, kThreads, 0, st>>>(xt, sb, sh, ss, H, s_true, D, psum,
+  sage::stats_partial_kernel<T><<<grid_stats, kThreads, 0, st>>>(xt, sb, sh, ss, H, s_true, D, psum,
                                                        pmax, pmin);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;

@@ -26,21 +26,30 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("prep_kv", "attention")
+SOURCES = ("prep_kv", "quant", "attention", "attention_q8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
+# (modes, dtypes, D), (q, k, v, o), 12 strides, 8 scale/stat pointers,
+# (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
+_ATTN_ARGS = [_I] * 6 + [_P] * 4 + [_LL] * 12 + [_P] * 8 + [_I] * 7 + [_F, _P]
+
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
     "sage_prep_kv": ("prep_kv", [_I, _I, _I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
-    "sage_attn_fwd": ("attention", [_I, _I, _I, _I, _P, _P, _P, _P] + [_LL] * 12
-                      + [_P] * 6 + [_I] * 6 + [_F, _P]),
+    "sage_channel_stats": ("quant", [_I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _F] + [_P] * 6),
+    "sage_quant_int8": ("quant", [_I, _I, _I, _P, _LL, _LL, _LL] + [_I] * 6
+                        + [_F, _I] + [_P] * 5 + [_I, _P]),
+    "sage_attn_fwd": ("attention", _ATTN_ARGS),
+    "sage_attn_fwd_q8": ("attention_q8", _ATTN_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
-                 "attention": "sage_attn_error_string"}
+                 "quant": "sage_quant_error_string",
+                 "attention": "sage_attn_error_string",
+                 "attention_q8": "sage_attn_q8_error_string"}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -57,7 +66,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str, flags) -> Path:
     h = hashlib.sha1()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(f.read_bytes())
     h.update(" ".join(flags).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"

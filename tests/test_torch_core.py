@@ -45,8 +45,14 @@ def qkv(Hq=2, Hk=None, S=256, D=64, scale=1.0, seed=0):
 
 
 def run_jax(q, k, v, **kw):
-    res = jax_sage(*(jnp.asarray(x.numpy()) for x in (q, k, v)), tensor_layout="HND",
-                   use_fused=True, interpret=True, fuse_q_quant=True, **kw)
+    return run_jax_unfused_q(q, k, v, **{"fuse_q_quant": True, **kw})
+
+
+def run_jax_unfused_q(q, k, v, tensor_layout="HND", **kw):
+    """JAX's ``_sage_attention`` on the fused (kernel) prep, ``fuse_q_quant``
+    left to its own rule unless given."""
+    res = jax_sage(*(jnp.asarray(x.numpy()) for x in (q, k, v)), tensor_layout=tensor_layout,
+                   use_fused=True, interpret=True, **kw)
     if isinstance(res, tuple):
         return tuple(np.asarray(r) for r in res)
     return np.asarray(res)
@@ -147,30 +153,60 @@ def test_qk_int8_pv_int8_entry_short_sequence():
     q, k, v = qkv(2, 2, 256, 64, seed=61)
     out = tsa.sageattn_qk_int8_pv_int8(q, k, v, is_causal=True)
     assert calc_diff(out, sdpa(q, k, v, is_causal=True)) < 1.5e-3
-    with pytest.raises(NotImplementedError, match="B6"):
-        port_sage(q, k, v, pv_dtype="int8", k_scale_mode="fine", block_q=128, block_k=128)
+    # explicit blocks keep native compute: fine K scales (B6) at this length
+    kw = dict(pv_dtype="int8", k_scale_mode="fine", block_q=128, block_k=128)
+    fine = port_sage(q, k, v, **kw)
+    assert calc_diff(fine, run_jax_unfused_q(q, k, v, **kw)) < 1e-5
+    assert calc_diff(fine, sdpa(q, k, v)) < 1.5e-3
+
+
+# sageattn options that raised before slice 2: each runs and matches JAX
+# (S = 64 is one kv tile, so the e4m3 P sees the same running max on both
+# sides whatever JAX's tile width)
+SLICE2_SAGEATTN_OPTIONS = [
+    dict(pv_dtype="bf16"), dict(pv_dtype="fp8"), dict(smooth_k=False),
+    dict(smooth_v=False), dict(fuse_q_quant=False),
+]
+
+
+@pytest.mark.parametrize("kwargs", SLICE2_SAGEATTN_OPTIONS,
+                         ids=[f"{k}={v}" for o in SLICE2_SAGEATTN_OPTIONS for k, v in o.items()])
+def test_slice2_sageattn_options_match_jax(kwargs):
+    q, k, v = qkv(2, 2, 64, 64, seed=71)
+    out = tsa.sageattn(q, k, v, **kwargs)
+    assert calc_diff(out, run_jax_unfused_q(q, k, v, **{**PINNED, **kwargs})) < 1e-5
+    bar = 5e-3 if kwargs.get("pv_dtype") == "fp8" else 1.5e-3
+    assert calc_diff(out, sdpa(q, k, v)) < bar
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(pv_dtype="bf16"), NotImplementedError),
-    (dict(pv_dtype="fp8"), NotImplementedError),
     (dict(pv_dtype="int4"), ValueError),
-    (dict(smooth_k=False), NotImplementedError),
-    (dict(smooth_v=False), NotImplementedError),
     (dict(attn_mask=torch.ones(1, 1, 64, 64, dtype=torch.bool)), NotImplementedError),
     (dict(sliding_window=16, is_causal=True), NotImplementedError),
     (dict(sliding_window=16), ValueError),
     (dict(attention_sinks=4), ValueError),
-    (dict(fuse_q_quant=False), NotImplementedError),
     (dict(qk_quant_gran="per_row"), ValueError),
     (dict(tensor_layout="HDN"), ValueError),
     (dict(quant_backward=True), NotImplementedError),
     (dict(interpret=True), TypeError),
+    (dict(pv_dtype="fp8", softmax_mode="static"), TypeError),
 ])
 def test_options_outside_the_slice_raise(kwargs, exc):
     q, k, v = qkv(2, 2, 64, 64, seed=71)
     with pytest.raises(exc):
         tsa.sageattn(q, k, v, **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    (dict(pv_dtype="fp8", softmax_mode="static"), "fp8"),
+    (dict(pv_dtype="fp8", compute_dtype="bf16"), "fp8"),
+    (dict(fuse_q_quant=True, k_scale_mode="fine", block_q=128, block_k=128), "fuse_q_quant"),
+    (dict(k_scale_mode="row", block_q=128, block_k=128), "k_scale_mode"),
+])
+def test_incoherent_modes_raise(kwargs, match):
+    q, k, v = qkv(2, 2, 64, 64, seed=72)
+    with pytest.raises(ValueError, match=match):
+        port_sage(q, k, v, **kwargs)
 
 
 @pytest.mark.parametrize("shapes,causal", [
@@ -198,6 +234,9 @@ def test_inputs_that_require_grad_raise():
 def test_dispatch_rows():
     assert dispatch.detect("cpu").default_pv_dtype == "int8"
     assert dispatch.detect().generation == "cpu"
+    # sm_90 has fast fp8 (passed on as fp8_native_dot) but keeps pv int8
+    assert dispatch._SM90.has_fast_fp8 and dispatch._SM90.default_pv_dtype == "int8"
+    assert not dispatch.detect("cpu").has_fast_fp8
     with pytest.raises(NotImplementedError):
         dispatch.detect(torch.device("meta"))
 

@@ -8,6 +8,8 @@ Bars: the DiT with SageAttention on both sides (JAX's attention is the HND
 other orders); embeddings and LayerNorm to float32 rounding.
 """
 
+import functools
+
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,15 @@ PINNED = dict(pv_dtype="int8", k_scale_mode="head", compute_dtype="native",
 def jax_sage_nhd(q, k, v, *args, **kwargs):
     o = jax_sage(*(jnp.swapaxes(x, 1, 2) for x in (q, k, v)), tensor_layout="HND",
                  use_fused=True, interpret=True, fuse_q_quant=True, **PINNED)
+    return jnp.swapaxes(o, 1, 2)
+
+
+def jax_sage_fp8_nhd(q, k, v, *args, **kwargs):
+    """The reference's H100 mode inside the model: fine K scales, e4m3 PV;
+    JAX's kv tiles pinned to the port's 64 (an e4m3 P depends on them)."""
+    o = jax_sage(*(jnp.swapaxes(x, 1, 2) for x in (q, k, v)), tensor_layout="HND",
+                 use_fused=True, interpret=True, pv_dtype="fp8", k_scale_mode="fine",
+                 block_q=64, block_k=64)
     return jnp.swapaxes(o, 1, 2)
 
 
@@ -70,6 +81,17 @@ def test_dit_with_sage_matches_jax():
     jo, to = _forward_both(jm, params, tm)
     assert bool(torch.isfinite(to.float()).all())
     assert calc_diff(jo, to) < 1e-3
+
+
+def test_dit_with_fp8_sage_matches_jax():
+    port_attn = functools.partial(sage_dot_product_attention, pv_dtype="fp8",
+                                  k_scale_mode="fine")
+    jm, params, tm = _models(jax_sage_fp8_nhd, port_attn)
+    jo, to = _forward_both(jm, params, tm)
+    assert bool(torch.isfinite(to.float()).all())
+    assert calc_diff(jo, to) < 1e-3
+    _, exact = _forward_both(*_models(None, oracle_nhd))
+    assert calc_diff(to, exact) < 5e-3
 
 
 def test_dit_with_exact_attention_matches_jax():

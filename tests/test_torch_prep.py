@@ -99,6 +99,7 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import sageattention_tpu_torch, sageattention_tpu_torch.models\n"
             "import sageattention_tpu_torch.ops.attention, sageattention_tpu_torch.ops.quant_fused\n"
+            "import sageattention_tpu_torch.ops.quant_kernels, sageattention_tpu_torch.ops.quant\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'sageattention_tpu.'))"
             " or m == 'sageattention_tpu']\n"
             "assert not bad, bad\n")
