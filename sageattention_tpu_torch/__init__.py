@@ -19,8 +19,10 @@ from .core import (
 )
 from .dispatch import detect
 from .utils.testing import calc_diff
+from .varlen import sageattn_varlen
 
 __all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "sageattn_qk_int8_pv_int8",
            "sageattn_qk_int8_pv_fp8", "sageattn_qk_int8_pv_fp16_triton",
            "sageattn_qk_int8_pv_fp16_cuda", "sageattn_qk_int8_pv_fp8_cuda",
-           "sageattn_qk_int8_pv_fp8_cuda_sm90", "flash_attention", "detect", "calc_diff"]
+           "sageattn_qk_int8_pv_fp8_cuda_sm90", "flash_attention", "sageattn_varlen",
+           "detect", "calc_diff"]

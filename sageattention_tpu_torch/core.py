@@ -31,6 +31,13 @@ quantizer is a kernel, and a CPU tensor runs each kernel's plain version).
    device with ``lax.cond``; eager PyTorch has no such branch);
 6. slice the output back, and repair the lse for smooth_k.
 
+``attn_mask`` (``[B, 1|H, Sq, Sk]``: bool keeps where True, a float mask is
+an additive bias in natural-log units, as in the JAX package) and
+``sliding_window``/``attention_sinks`` (causal: row r sees keys
+``[r - W + 1, r]`` and the first ``attention_sinks`` keys) ride the same
+kernel (B7, B9).  A float bias takes the online softmax under ``"auto"``:
+the static cap no longer bounds the biased logits.
+
 Options outside the slices ported so far raise ``NotImplementedError``
 naming the slice that brings them.  There is no backward yet: inputs that
 require grad raise.
@@ -143,7 +150,7 @@ def fp8_v(v: torch.Tensor, vm: Optional[torch.Tensor], v_scale: torch.Tensor):
 
 
 def _static_safe(*, q, k, q_i8, q_scale, q_capmax, kn_max, ks_head, k_scale, k_i8,
-                 smooth_k, sm_scale, Sq_pad, Sk_pad) -> bool:
+                 smooth_k, sm_scale, Sq_pad, Sk_pad, masked="none") -> bool:
     """The JAX package's predictive static-softmax check (``core.py:551-632``)
     for a pre-quantized Q: True when no row's cap can sit more than 80 log2
     units above that row's largest logit.  ``q``/``k`` are the float inputs;
@@ -152,8 +159,9 @@ def _static_safe(*, q, k, q_i8, q_scale, q_capmax, kn_max, ks_head, k_scale, k_i
     ``Sk_pad`` are the lengths the JAX package pads to: its row-mean bound
     averages K over the padded length and takes the padded (zero) query rows
     into its minimum, and the diagonal bound needs Sq == Sk and equal padded
-    lengths.  Evaluated on the device; one host read decides, a second one
-    only when the per-head bound fails."""
+    lengths and no mask (a mask may hide the diagonal).  Evaluated on the
+    device; one host read decides, a second one only when the per-head bound
+    fails."""
     Hq = q_i8.shape[1]
     cap_bh = q_capmax * kn_max * _CAP_SLACK
     if ks_head is not None:
@@ -173,7 +181,7 @@ def _static_safe(*, q, k, q_i8, q_scale, q_capmax, kn_max, ks_head, k_scale, k_i
             row_lo_min = torch.clamp_max(row_lo_min, 0.0)
     if bool((cap_bh - row_lo_min <= _STATIC_SLACK_LOG2).all()):
         return True
-    if not (q.shape[2] == k.shape[2] and Sq_pad == Sk_pad):
+    if not (q.shape[2] == k.shape[2] and Sq_pad == Sk_pad and masked == "none"):
         return False
     q8 = q_i8.float()
     qn = torch.sqrt((q8 * q8).sum(dim=3, keepdim=True))
@@ -238,13 +246,18 @@ def _sage_attention(
         raise ValueError("q, k and v must be on one device")
     if pv_dtype not in ("int8", "fp8", "bf16"):
         raise ValueError(f"unknown pv_dtype {pv_dtype!r}")
+    masked = "none"
     if attn_mask is not None:
-        raise NotImplementedError("attn_mask arrives with ROADMAP queue 1 item 6 (kernel B7)")
-    if sliding_window:
-        raise NotImplementedError("sliding_window arrives with queue 1 item 6 (kernel B9)")
+        if attn_mask.ndim != 4 or attn_mask.shape[1] not in (1, Hq) or (
+                attn_mask.shape[0], attn_mask.shape[2], attn_mask.shape[3]) != (B, Sq, Sk):
+            raise ValueError(f"attn_mask must be [B, 1|H, Sq, Sk], got {tuple(attn_mask.shape)}")
+        masked = "bool" if attn_mask.dtype == torch.bool else "float"
+        if masked == "float":
+            attn_mask = attn_mask.float()
     if softmax_mode == "auto":
-        # static keeps a bf16 P; fp8 PV keeps the online e4m3 P with its offset
-        softmax_mode = "static" if pv_dtype != "fp8" else "online"
+        # static keeps a bf16 P; fp8 PV keeps the online e4m3 P with its
+        # offset; a float bias is not covered by the cap
+        softmax_mode = "static" if pv_dtype != "fp8" and masked != "float" else "online"
     if softmax_mode not in ("static", "online"):
         raise ValueError(f"unknown softmax_mode {softmax_mode!r}")
     if pv_dtype == "fp8" and (softmax_mode == "static" or compute_dtype == "bf16"):
@@ -278,6 +291,10 @@ def _sage_attention(
     fuse_qq = head and torch.is_floating_point(q) and fuse_q_quant is not False
     if fuse_q_quant and not fuse_qq:
         raise ValueError("fuse_q_quant=True requires the head-mode path with float inputs")
+    if softmax_mode == "static" and masked == "float" and not fuse_qq:
+        # the predictive cap does not bound biased logits; only the fused
+        # post-hoc check covers them
+        softmax_mode = "online"
     static = softmax_mode == "static"
 
     # ---- K and V prep ----
@@ -341,9 +358,10 @@ def _sage_attention(
             fold_k_scale=head, compute_dtype=compute_dtype, softmax_mode=mode,
             fp8_native_dot=caps.has_fast_fp8, emit_lse=return_lse,
             fuse_v_mean=vm is not None, pv_via_bf16=(mode == "online" and static),
-            fuse_q_quant=fuse_qq, sm_scale=sm_scale)
+            fuse_q_quant=fuse_qq, sm_scale=sm_scale, masked=masked,
+            window=sliding_window, sinks=attention_sinks)
         return attention_call(q if fuse_qq else q_i8, k_i8, v_in, q_scale=q_scale,
-                              k_scale=k_scale, v_scale=v_scale,
+                              k_scale=k_scale, v_scale=v_scale, attn_mask=attn_mask,
                               kn_max=kn_max if mode == "static" else None,
                               v_mean=vm, k_head_scale=ks_sc if fuse_qq else None, cfg=cfg)
 
@@ -357,7 +375,7 @@ def _sage_attention(
         safe = _static_safe(
             q=q, k=k, q_i8=q_i8, q_scale=q_scale, q_capmax=q_capmax, kn_max=kn_max,
             ks_head=ks_head, k_scale=k_scale, k_i8=k_i8, smooth_k=smooth_k,
-            sm_scale=sm_scale, Sq_pad=Sq_pad, Sk_pad=Sk_pad)
+            sm_scale=sm_scale, Sq_pad=Sq_pad, Sk_pad=Sk_pad, masked=masked)
         out, lse_b2 = _call("static" if safe else "online")
     else:
         out, lse_b2 = _call("online")
@@ -523,7 +541,8 @@ def flash_attention(
 ):
     """Unquantized bf16 FlashAttention baseline (kernel B4): the numeric
     baseline the quantized modes are compared against.  ``block_q`` and
-    ``block_k`` are accepted for parity and ignored."""
+    ``block_k`` are accepted for parity and ignored; a causal
+    ``sliding_window`` with ``attention_sinks`` runs the B9 band."""
     layout = get_layout(tensor_layout)
     _no_grad_inputs(q, k, v)
     q, k, v = _to_hnd(layout, q, k, v)
@@ -535,8 +554,6 @@ def flash_attention(
         raise ValueError("sliding_window requires is_causal=True")
     if attention_sinks and not sliding_window:
         raise ValueError("attention_sinks requires sliding_window")
-    if sliding_window:
-        raise NotImplementedError("sliding_window arrives with queue 1 item 6 (kernel B9)")
     if sm_scale is None:
         sm_scale = 1.0 / (D_og ** 0.5)
     q, _ = pad_head_dim(q.to(torch.bfloat16), HND_LAYOUT)
@@ -544,7 +561,7 @@ def flash_attention(
     v, _ = pad_head_dim(v.to(torch.bfloat16), HND_LAYOUT)
     cfg = AttnConfig(causal=is_causal, quantized=False, layout="HND",
                      sm_scale=sm_scale, kv_len=Sk, out_dtype=torch.bfloat16,
-                     emit_lse=return_lse)
+                     emit_lse=return_lse, window=sliding_window, sinks=attention_sinks)
     out, lse_b2 = attention_call(q, k, v, cfg=cfg)
     out = out[..., :D_og]
     if not layout.is_hnd:

@@ -35,12 +35,13 @@ int sage_attn_fwd(int qmode, int static_sm, int pv, int in_dtype, int out_dtype,
   if (in_dtype != out_dtype || q_scale) return -1;
   if (qmode == Q_FLASH) {
     if (static_sm || in_dtype != 0) return -1;
-    return Launcher<__nv_bfloat16, __nv_bfloat16>{p, grid, s}
+    return Launcher<__nv_bfloat16, __nv_bfloat16, false>{p, grid, s}
         .d<Q_FLASH, false, PV_BF16P_BF16V>(D);
   }
   if (in_dtype == 0)
-    return Launcher<__nv_bfloat16, __nv_bfloat16>{p, grid, s}.run(qmode, pv, static_sm, D);
-  if (in_dtype == 1) return Launcher<float, float>{p, grid, s}.run(qmode, pv, static_sm, D);
+    return Launcher<__nv_bfloat16, __nv_bfloat16, false>{p, grid, s}.run(qmode, pv, static_sm, D);
+  if (in_dtype == 1)
+    return Launcher<float, float, false>{p, grid, s}.run(qmode, pv, static_sm, D);
   return -1;
 }
 

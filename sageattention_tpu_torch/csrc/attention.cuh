@@ -21,6 +21,29 @@
 // Shared rules: causal with above-diagonal tiles skipped, the kv tail
 // masked beyond kv_len, GQA through h / (Hq/Hk), head dim 64 or 128.
 //
+// The EXT instantiations (built by attention_ext.cu / attention_q8_ext.cu)
+// add the options of the Pallas kernel's B7-B9 configurations, every one a
+// runtime switch; the plain instantiations compile none of this code:
+//   bool mask   keep-mask [B, 1|Hq, Sq, Sk] with a 64x64 tile table (0 dead,
+//               1 partly live, 2 fully live): a dead tile skips its loads
+//               and compute (JAX remaps the dead block's DMA instead, a TPU
+//               tactic), and only a partly live one reads the mask;
+//   float bias  additive, natural-log units, times log2(e) here;
+//   segments    q/kv segment ids must match (q pads -1, kv pads -2); the
+//               ids' range over each 64-row tile (a table) lets a tile whose
+//               rows and columns share no id be skipped, and one whose rows
+//               and columns all carry the same id go unmasked;
+//   window      causal band [r - W + 1, r] plus sink columns (global
+//               positions < sinks, or per segment through kv_segpos with a
+//               tile table): tiles below the band that hold no sink are
+//               skipped, so the work is O(S (W + sinks));
+//   row K scale fuse_k_rows: a per-query-row K scale (varlen's per-segment
+//               scale) in place of the per-head one.
+// The masks apply after the scale and before the softmax, in the Pallas
+// kernel's order (tail, causal and band, segments, bool, then the bias),
+// and only on the tiles that need them.  A skipped tile holds only masked
+// scores, which change no running sum, so skipping is exact.
+//
 // What bounds it on the H100: tensor-core issue rate and the exp2 of the
 // softmax (S^2 work against S*D bytes).  This version is simple: 4 warps
 // own 64 query rows (16 each), K/V tiles of 64 rows are staged in shared
@@ -50,6 +73,7 @@ constexpr float MASK_NEG = -1e30f;  // added to masked scores
 constexpr float M_CLAMP = -1e20f;   // floor of the running max
 constexpr float FP8_OFFSET_LOG2 = 8.807354922057604f;    // log2(448)
 constexpr float INT8_P_OFFSET_LOG2 = 6.988684686772166f; // log2(127)
+constexpr float LOG2E_F = 1.4426950408889634f;          // natural-log bias -> base 2
 
 enum QMode { Q_INT8 = 0, Q_BF16 = 1, Q_FLASH = 2 };
 // P and V of the PV product
@@ -68,6 +92,20 @@ struct Params {
   float* lmin;                // [B*Hq*n_qt] (static, fused Q), or null
   int Hq, Hk, Sq, Sk, kv_len, causal;
   float fold;                 // sm_scale * log2(e)
+  // read by the EXT instantiations only
+  const int8_t* mask;         // [B, Hm, Sq, Sk] bool keep-mask, or null
+  const float* bias;          // [B, Hm, Sq, Sk] additive bias (natural log), or null
+  long long m_sb, m_sh, m_ss; // mask / bias strides, unit column stride
+  int Hm;
+  const uint8_t* live;        // [B, Hm, n_qt, n_kt] bool-mask tiles: 0 dead, 1 partly, 2 fully live
+  const int* q_seg;           // [B, Sq] segment ids, or null
+  const int* kv_seg;          // [B, Sk]
+  const int* kv_segpos;       // [B, Sk] position in its segment (per-segment sinks), or null
+  const int* qseg_rng;        // [B, n_qt, 2] min and max q segment id per 64-row tile
+  const int* kvseg_rng;       // [B, n_kt, 2] the same per 64-column kv tile
+  const uint8_t* sinkblk;     // [B, n_kt] the kv tile holds a per-segment sink
+  const float* k_row_scale;   // [B*Hq*Sq] per-row K scale (fuse_k_rows), or null
+  int window, sinks;
 };
 
 __device__ __forceinline__ void mma_s8(int* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
@@ -138,8 +176,10 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 // T: the Q operand in global memory (bf16 / f32 float Q, int8 codes when
 // pre-quantized); O: the output.
-template <int QM, bool STATIC, int PV, int D, typename T, typename O>
-__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
+// The kernel body; attn_fwd_kernel (plain) and attn_fwd_ext_kernel (EXT)
+// below are its two entry points.
+template <int QM, bool STATIC, int PV, int D, bool EXT, typename T, typename O>
+__device__ __forceinline__ void attn_fwd_body(const Params p) {
   constexpr bool KI8 = (QM == Q_INT8);          // K stays int8 in smem
   constexpr bool QPRE = std::is_same<T, int8_t>::value;
   constexpr int I8_STRIDE = D + 16;              // bytes per int8 row (padded)
@@ -158,6 +198,8 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   __shared__ float s_cap[BQ];
   __shared__ float s_ks[BK];
   __shared__ float s_lmin[kThreads / 32];
+  __shared__ __align__(8) int s_kvseg[EXT ? BK : 2];
+  __shared__ int s_segpos[EXT ? BK : 1];
 
   const int n_qt = (p.Sq + BQ - 1) / BQ;
   // causal: the longest q tiles first, so the tail of the grid is short work
@@ -171,11 +213,16 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   // ---------------- Q tile ----------------
   {
     const T* qb = static_cast<const T*>(p.q) + b * p.q_sb + hq * p.q_sh;
-    const float ksh = (QM != Q_FLASH && !QPRE) ? p.k_head_scale[b * p.Hk + hk] : 1.f;
+    // per-head K scale, or 1 when per-column scales ride k_scale
+    const float ksh = (QM != Q_FLASH && !QPRE && p.k_head_scale)
+                          ? p.k_head_scale[b * p.Hk + hk] : 1.f;
+    const float* ksr = (EXT && QM != Q_FLASH && !QPRE && p.k_row_scale)
+                           ? p.k_row_scale + (long long)(b * p.Hq + hq) * p.Sq : nullptr;
     const float knmax = STATIC ? p.kn_max[b * p.Hq + hq] : 0.f;
     const float* qsr = QPRE ? p.q_scale + (long long)(b * p.Hq + hq) * p.Sq : nullptr;
     for (int rr = 0; rr < 16; ++rr) {
       const int r = warp * 16 + rr, gr = q0 + r;
+      const float kshr = (EXT && ksr && gr < p.Sq) ? ksr[gr] : ksh;
       float x[E];
       if (gr < p.Sq) {
         load_row_part<E>(qb + gr * p.q_ss + lane * E, x);
@@ -229,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
         }
         n2 = sage::warp_sum(n2);
         if (lane == 0) {
-          const float qse = __fmul_rn(qs, ksh);
+          const float qse = __fmul_rn(qs, kshr);
           s_qscale[r] = qse;
           if (STATIC)
             s_cap[r] = __fmul_rn(__fmul_rn(qse, sqrtf(n2)),
@@ -239,7 +286,7 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
         float qe[E], n2 = 0.f;
 #pragma unroll
         for (int i = 0; i < E; ++i) {
-          qe[i] = __fmul_rn(__fmul_rn(x[i], p.fold), ksh);
+          qe[i] = __fmul_rn(__fmul_rn(x[i], p.fold), kshr);
           n2 += qe[i] * qe[i];
         }
         __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + lane * E;
@@ -277,9 +324,39 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   const uint8_t* vbase = static_cast<const uint8_t*>(p.v);
   const bool col_scale = p.k_scale != nullptr;
   const float* ksb = col_scale ? p.k_scale + (long long)(b * p.Hk + hk) * p.Sk : nullptr;
+  // EXT: the rows' segment ids, the mask rows, and the tile tables' bases
+  const int n_kt_all = (p.Sk + BK - 1) / BK;
+  const int qsegA = (EXT && p.q_seg && q0 + rA < p.Sq) ? p.q_seg[(long long)b * p.Sq + q0 + rA] : -1;
+  const int qsegB = (EXT && p.q_seg && q0 + rB < p.Sq) ? p.q_seg[(long long)b * p.Sq + q0 + rB] : -1;
+  // the mask / bias rows of this thread's two query rows (null past Sq)
+  const long long moff = EXT ? b * p.m_sb + (p.Hm == 1 ? 0 : hq) * p.m_sh : 0;
+  const long long mrowA = moff + (long long)(q0 + rA) * p.m_ss;
+  const long long mrowB = moff + (long long)(q0 + rB) * p.m_ss;
+  const bool rowA_in = q0 + rA < p.Sq, rowB_in = q0 + rB < p.Sq;
+  const uint8_t* live = (EXT && p.live)
+      ? p.live + ((long long)(b * p.Hm + (p.Hm == 1 ? 0 : hq)) * n_qt + qt) * n_kt_all : nullptr;
+  const int qlo = (EXT && p.q_seg) ? p.qseg_rng[((long long)b * n_qt + qt) * 2] : 0;
+  const int qhi = (EXT && p.q_seg) ? p.qseg_rng[((long long)b * n_qt + qt) * 2 + 1] : 0;
 
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * BK;
+    bool seg_cut = false;  // EXT: the tile needs the segment mask
+    if (EXT) {  // block-uniform: a dead tile is skipped by every thread
+      if (p.q_seg) {
+        const int* kr = p.kvseg_rng + ((long long)b * n_kt_all + kt) * 2;
+        if (qhi < kr[0] || qlo > kr[1]) continue;  // no row shares a column's segment
+        seg_cut = !(qlo == qhi && kr[0] == kr[1] && qlo == kr[0]);
+      }
+      if (p.window) {
+        bool in_band = k0 + BK - 1 >= q0 - (p.window - 1);
+        if (p.sinks)
+          in_band = in_band || (p.kv_segpos ? p.sinkblk[(long long)b * n_kt_all + kt] != 0
+                                            : k0 < p.sinks);
+        if (!in_band) continue;
+      }
+      if (live && !live[kt]) continue;
+    }
+    const bool mask_cut = EXT && p.mask && live[kt] == 1;  // a partly live tile
     __syncthreads();  // the previous tile (or the Q tile) has been consumed
     // ---- stage K and V (and the K column scales): 16 bytes of global
     // memory per tensor per thread per step, both loads in flight together;
@@ -322,6 +399,11 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
       }
     }
     if (col_scale && tid < BK) s_ks[tid] = k0 + tid < p.kv_len ? ksb[k0 + tid] : 0.f;
+    if (EXT && p.kv_seg && tid < BK) {
+      const int c = k0 + tid;
+      s_kvseg[tid] = c < p.Sk ? p.kv_seg[(long long)b * p.Sk + c] : -3;
+      if (p.kv_segpos) s_segpos[tid] = c < p.Sk ? p.kv_segpos[(long long)b * p.Sk + c] : (1 << 30);
+    }
     __syncthreads();
 
     // ---- S = Q K^T for the warp's 16 rows x 64 columns ----
@@ -384,6 +466,57 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
           const int row = q0 + (i < 2 ? rA : rB);
           if (col >= p.kv_len || (p.causal && col > row)) s[n][i] = MASK_NEG;
         }
+    }
+    if (EXT) {
+      // the band's lower edge (tiles fully inside every row's band, or fully
+      // among the dense sinks, need no band mask), segments, bool mask, bias;
+      // one uniform pass each, on the tiles that need it
+      const bool band_cut = p.window && k0 < q0 + BQ - 1 - (p.window - 1) &&
+                            !(p.sinks && !p.kv_segpos && k0 + BK - 1 < p.sinks);
+      if (band_cut) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int cc = n * 8 + 2 * t + (i & 1), col = k0 + cc;
+            const int row = q0 + (i < 2 ? rA : rB);
+            bool keep = col >= row - (p.window - 1);
+            if (p.sinks) keep = keep || (p.kv_segpos ? s_segpos[cc] < p.sinks : col < p.sinks);
+            if (!keep) s[n][i] = MASK_NEG;
+          }
+      }
+      if (seg_cut) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int2 ks2 = *reinterpret_cast<const int2*>(s_kvseg + n * 8 + 2 * t);
+          if (qsegA != ks2.x) s[n][0] = MASK_NEG;
+          if (qsegA != ks2.y) s[n][1] = MASK_NEG;
+          if (qsegB != ks2.x) s[n][2] = MASK_NEG;
+          if (qsegB != ks2.y) s[n][3] = MASK_NEG;
+        }
+      }
+      if (mask_cut) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = k0 + n * 8 + 2 * t + (i & 1);
+            const bool in_row = i < 2 ? rowA_in : rowB_in;
+            if (!in_row || col >= p.Sk || p.mask[(i < 2 ? mrowA : mrowB) + col] == 0)
+              s[n][i] = MASK_NEG;
+          }
+      }
+      if (p.bias) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = k0 + n * 8 + 2 * t + (i & 1);
+            if ((i < 2 ? rowA_in : rowB_in) && col < p.Sk)
+              s[n][i] = __fadd_rn(s[n][i],
+                                  __fmul_rn(p.bias[(i < 2 ? mrowA : mrowB) + col], LOG2E_F));
+          }
+      }
     }
 
     // ---- softmax ----
@@ -516,19 +649,42 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
   }
 }
 
-// Runs the kernel for (qmode, static, pv, D) with Q operand T and output O.
-template <typename T, typename O>
+template <int QM, bool STATIC, int PV, int D, typename T, typename O>
+__global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
+  attn_fwd_body<QM, STATIC, PV, D, false, T, O>(p);
+}
+
+// The EXT entry keeps the plain one's occupancy (3 blocks per SM at D = 128,
+// 4 at D = 64): its extra state would otherwise push some instantiations
+// past the register count that allows it.  The plain entry keeps the bare
+// bound: any minimum-blocks hint changes how ptxas allocates its registers.
+template <int QM, bool STATIC, int PV, int D, typename T, typename O>
+__global__ void __launch_bounds__(kThreads, (D == 64 ? 4 : 3)) attn_fwd_ext_kernel(Params p) {
+  attn_fwd_body<QM, STATIC, PV, D, true, T, O>(p);
+}
+
+// Runs the kernel for (qmode, static, pv, D) with Q operand T and output O,
+// in the plain (EXT false) or the B7-B9 (EXT true) instantiation.
+template <typename T, typename O, bool EXT>
 struct Launcher {
   const Params& p;
   dim3 grid;
   cudaStream_t st;
 
+  template <int QM, bool STATIC, int PV, int D>
+  void launch() const {
+    if constexpr (EXT)
+      attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
+    else
+      attn_fwd_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
+  }
+
   template <int QM, bool STATIC, int PV>
   int d(int D) const {
     if (D == 64)
-      attn_fwd_kernel<QM, STATIC, PV, 64, T, O><<<grid, kThreads, 0, st>>>(p);
+      launch<QM, STATIC, PV, 64>();
     else if (D == 128)
-      attn_fwd_kernel<QM, STATIC, PV, 128, T, O><<<grid, kThreads, 0, st>>>(p);
+      launch<QM, STATIC, PV, 128>();
     else
       return -1;
     return (int)cudaGetLastError();
@@ -573,7 +729,33 @@ inline Params make_params(const void* q, const void* k, const void* v, void* o,
   p.kn_max = kn_max; p.v_scale = v_scale; p.v_mean = v_mean; p.lse = lse; p.lmin = lmin;
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk; p.kv_len = kv_len; p.causal = causal;
   p.fold = fold;
+  p.mask = nullptr; p.bias = nullptr; p.m_sb = p.m_sh = p.m_ss = 0; p.Hm = 1;
+  p.live = nullptr; p.q_seg = p.kv_seg = p.kv_segpos = nullptr; p.sinkblk = nullptr;
+  p.qseg_rng = p.kvseg_rng = nullptr;
+  p.k_row_scale = nullptr; p.window = p.sinks = 0;
   return p;
+}
+
+// The B7-B9 arguments of the *_ext entries.
+inline void set_ext(Params& p, const int8_t* mask, const float* bias, long long m_sb,
+                    long long m_sh, long long m_ss, int Hm, const uint8_t* live,
+                    const int* q_seg, const int* kv_seg, const int* kv_segpos,
+                    const int* qseg_rng, const int* kvseg_rng, const uint8_t* sinkblk,
+                    const float* k_row_scale, int window, int sinks) {
+  p.mask = mask; p.bias = bias; p.m_sb = m_sb; p.m_sh = m_sh; p.m_ss = m_ss; p.Hm = Hm;
+  p.live = live; p.q_seg = q_seg; p.kv_seg = kv_seg; p.kv_segpos = kv_segpos;
+  p.qseg_rng = qseg_rng; p.kvseg_rng = kvseg_rng;
+  p.sinkblk = sinkblk; p.k_row_scale = k_row_scale; p.window = window; p.sinks = sinks;
+}
+
+// Checks the B7-B9 arguments: -1 for a combination the kernel cannot run.
+inline int check_ext(const Params& p) {
+  if ((p.mask && p.bias) || (p.mask && !p.live) || (p.Hm != 1 && p.Hm != p.Hq)) return -1;
+  if ((p.q_seg == nullptr) != (p.kv_seg == nullptr)) return -1;
+  if (p.q_seg && !(p.qseg_rng && p.kvseg_rng)) return -1;
+  if (p.window && (!p.causal || p.mask || p.bias || p.window < 1)) return -1;
+  if (p.sinks && (!p.window || (p.kv_segpos && (!p.sinkblk || !p.kv_seg)))) return -1;
+  return 0;
 }
 
 }  // namespace sage_attn

@@ -30,8 +30,10 @@ int sage_attn_fwd_q8(int qmode, int static_sm, int pv, int in_dtype, int out_dty
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype != 2 || !q_scale || qmode == Q_FLASH) return -1;
-  if (out_dtype == 0) return Launcher<int8_t, __nv_bfloat16>{p, grid, s}.run(qmode, pv, static_sm, D);
-  if (out_dtype == 1) return Launcher<int8_t, float>{p, grid, s}.run(qmode, pv, static_sm, D);
+  if (out_dtype == 0)
+    return Launcher<int8_t, __nv_bfloat16, false>{p, grid, s}.run(qmode, pv, static_sm, D);
+  if (out_dtype == 1)
+    return Launcher<int8_t, float, false>{p, grid, s}.run(qmode, pv, static_sm, D);
   return -1;
 }
 

@@ -26,7 +26,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("prep_kv", "quant", "attention", "attention_q8")
+SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -35,6 +35,10 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # (modes, dtypes, D), (q, k, v, o), 12 strides, 8 scale/stat pointers,
 # (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
 _ATTN_ARGS = [_I] * 6 + [_P] * 4 + [_LL] * 12 + [_P] * 8 + [_I] * 7 + [_F, _P]
+# the B7-B9 builds add: mask, bias, 3 mask strides, Hm, liveness, q/kv segment
+# ids, kv_segpos, the q/kv tiles' segment-id ranges, sink tiles, per-row K
+# scales, window, sinks
+_ATTN_EXT_ARGS = _ATTN_ARGS[:-1] + [_P, _P] + [_LL] * 3 + [_I] + [_P] * 8 + [_I, _I, _P]
 
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
@@ -42,14 +46,18 @@ SIGNATURES = {
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
     "sage_channel_stats": ("quant", [_I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _F] + [_P] * 6),
     "sage_quant_int8": ("quant", [_I, _I, _I, _P, _LL, _LL, _LL] + [_I] * 6
-                        + [_F, _I] + [_P] * 5 + [_I, _P]),
+                        + [_F, _I] + [_P] * 5 + [_I] + [_P] * 4 + [_I, _I, _P]),
     "sage_attn_fwd": ("attention", _ATTN_ARGS),
     "sage_attn_fwd_q8": ("attention_q8", _ATTN_ARGS),
+    "sage_attn_fwd_ext": ("attention_ext", _ATTN_EXT_ARGS),
+    "sage_attn_fwd_q8_ext": ("attention_q8_ext", _ATTN_EXT_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "quant": "sage_quant_error_string",
                  "attention": "sage_attn_error_string",
-                 "attention_q8": "sage_attn_q8_error_string"}
+                 "attention_q8": "sage_attn_q8_error_string",
+                 "attention_ext": "sage_attn_ext_error_string",
+                 "attention_q8_ext": "sage_attn_q8_ext_error_string"}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -9,13 +9,15 @@ symmetric int8 at ``amax / 127`` with round-to-nearest-even.
 
 Granularities (rows per scale group, Q and K):
 ``per_block`` 128/64, ``per_warp`` 32/64, ``per_thread`` 4/16.
-The segmented (varlen) quantizer arrives with the varlen slice.
+The segmented quantizer serves packed varlen buffers: its scales never
+cross a segment boundary.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 LOG2E = 1.4426950408889634
@@ -140,6 +142,42 @@ def per_channel_int8(v, tensor_layout: str = "HND", smooth_v: bool = True):
     """Per-channel symmetric int8 V: ``(v_int8, v_scale [B,H,D], vm | None)``."""
     return _per_channel(v, tensor_layout, smooth_v, 127.0,
                         lambda x: torch.clamp(torch.round(x), -127, 127).to(torch.int8))
+
+
+def _segmented_group_amax(a: torch.Tensor, seg: torch.Tensor, group: int) -> torch.Tensor:
+    """Per-row segment-confined group amax: ``a [B, H, S]`` row amaxes and
+    ``seg`` ``[S]`` or ``[B, S]`` segment ids in contiguous runs (a packed
+    varlen buffer).  Row t gets the max of ``a`` over the rows of its
+    ``group``-row block that lie in its run of equal ids, so a group that
+    straddles a sequence boundary couples no two sequences' scales."""
+    B, H, S = a.shape
+    if S % group:
+        raise ValueError(f"seq {S} not a multiple of quant group {group}")
+    seg = seg.reshape(-1, S).to(a.device)
+    pos = torch.arange(S, device=a.device)
+    start = (pos % group == 0)[None] | torch.cat(
+        [torch.ones_like(seg[:, :1], dtype=torch.bool), seg[:, 1:] != seg[:, :-1]], dim=1)
+    run = (torch.cumsum(start.to(torch.int64), dim=1) - 1)[:, None, :].expand(B, H, S)
+    runmax = torch.zeros_like(a).scatter_reduce(2, run, a, reduce="amax", include_self=False)
+    return torch.gather(runmax, 2, run)
+
+
+def quant_int8_groupwise_segmented(x: torch.Tensor, seg: torch.Tensor, group: int,
+                                   fold: float = 1.0, sub: Optional[torch.Tensor] = None):
+    """Segment-aware :func:`quant_int8_groupwise` for packed varlen buffers:
+    each row's scale is the amax over (group ∩ segment), so scales never
+    cross sequence boundaries and pad rows (ids -1/-2) keep their own.
+    Returns ``(int8 [B,H,S,D], per-row scales [B,H,S])``."""
+    xf = x.float()
+    if sub is not None:
+        xf = xf - sub.float()
+    if fold != 1.0:
+        xf = xf * fold
+    amax = _segmented_group_amax(xf.abs().amax(dim=3), seg, group)
+    scale = amax * float(np.float32(1.0 / 127.0))
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(xf / safe[..., None]), -127, 127).to(torch.int8)
+    return q, safe
 
 
 def dequant_int8_groupwise(x_i8: torch.Tensor, scales: torch.Tensor, group: int) -> torch.Tensor:

@@ -331,16 +331,25 @@ def test_slice2_options_run_and_match_jax(field, value, fixups, name):
     ("causal_row_mod", 4), ("fuse_k_rows", True), ("p_sim_fp4", True),
 ])
 def test_configs_outside_the_slice_raise(field, value):
+    """Options of later slices raise NotImplementedError.  Those of slice 3
+    (B7-B9) name their launch key, or raise ValueError where the B2 base
+    cannot take them (a window needs causal, sinks need a window)."""
+    slice3 = {"masked": "B2-bool", "segmented": "B2-seg", "fuse_k_rows": "B2-rowk",
+              "window": ValueError, "sinks": ValueError}
     base = tatt.AttnConfig(**_cfg_fields("B2", False, 128, 64))
     cfg = dataclasses.replace(base, **{field: value})
-    with pytest.raises(NotImplementedError):
+    expected = slice3.get(field, NotImplementedError)
+    if isinstance(expected, str):
+        assert tatt.config_name(cfg) == expected
+        return
+    with pytest.raises(expected):
         tatt.config_name(cfg)
 
 
 @pytest.mark.parametrize("fields", [
     dict(pv_dtype="fp8"),                                 # e4m3 V under a bf16 P
     dict(pv_dtype="fp8", pv_via_bf16=False, softmax_mode="static"),
-    dict(fold_k_scale=False),                             # fused Q, per-column K scales
+    dict(fold_k_scale=False, fuse_k_rows=True),           # per-row K scales need the fold
     dict(compute_dtype="bf16", fold_k_scale=False, fuse_q_quant=False),
 ])
 def test_incoherent_configs_raise(fields):
@@ -353,6 +362,8 @@ def test_attention_call_rejects_inputs_outside_the_slice():
     q, k, v = _inputs(2, 2, 128, 64, seed=5)
     cfg = tatt.AttnConfig(**_cfg_fields("B4", False, 128, 64))
     with pytest.raises(NotImplementedError):
+        tatt.attention_call(q, k, v, offsets=torch.zeros(2, dtype=torch.int32), cfg=cfg)
+    with pytest.raises(ValueError):   # a mask needs cfg.masked
         tatt.attention_call(q, k, v, attn_mask=torch.ones(1, 1, 128, 128), cfg=cfg)
     with pytest.raises(ValueError):
         tatt.attention_call(q, k[:, :, :64], v, cfg=cfg)

@@ -181,8 +181,9 @@ def test_slice2_sageattn_options_match_jax(kwargs):
 
 @pytest.mark.parametrize("kwargs,exc", [
     (dict(pv_dtype="int4"), ValueError),
-    (dict(attn_mask=torch.ones(1, 1, 64, 64, dtype=torch.bool)), NotImplementedError),
-    (dict(sliding_window=16, is_causal=True), NotImplementedError),
+    (dict(attn_mask=torch.ones(1, 64, 64, dtype=torch.bool)), ValueError),   # not 4-d
+    (dict(sliding_window=16, is_causal=True,
+          attn_mask=torch.ones(1, 1, 64, 64, dtype=torch.bool)), ValueError),
     (dict(sliding_window=16), ValueError),
     (dict(attention_sinks=4), ValueError),
     (dict(qk_quant_gran="per_row"), ValueError),

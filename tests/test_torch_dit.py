@@ -166,8 +166,11 @@ def test_zero_init_gates_make_blocks_identity():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(mask=torch.ones(1, 1, 8, 8, dtype=torch.bool)),
-    dict(bias=torch.zeros(1, 1, 8, 8)),
+    # a mask or a bias alone runs since slice 3 (B7); both at once, sequence
+    # lengths and a non-causal window have no kernel path and raise
+    dict(mask=torch.ones(1, 1, 8, 8, dtype=torch.bool), bias=torch.zeros(1, 1, 8, 8)),
+    dict(mask=torch.ones(1, 1, 8, 8, dtype=torch.bool), local_window_size=(4, 0),
+         is_causal=True),
     dict(query_seq_lengths=torch.tensor([8])),
     dict(key_value_seq_lengths=torch.tensor([8])),
     dict(local_window_size=(4, 0)),

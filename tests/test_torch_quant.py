@@ -208,13 +208,20 @@ def test_quant_fixed_matches_pallas(mode, layout):
 
 
 def test_quant_kernels_refuse_varlen_options_and_bad_groups():
+    """The varlen options run since slice 3 (row norms and dots beside the
+    codes; segments through ``quant_int8_segmented``); bad groups, a
+    channel-mode capmax, short segment ids and a dot operand that does not
+    cover the rows are refused."""
     x = torch.from_numpy(_rand((1, 1, 128, 64), 9))
-    for kw in (dict(with_norm=True), dict(dot_with=x.to(torch.int8)),
-               dict(segment_ids=torch.zeros(1, 128, dtype=torch.int32))):
-        with pytest.raises(NotImplementedError, match="varlen"):
-            qk.quant_int8_groupwise(x, 16, **kw)
-    with pytest.raises(NotImplementedError, match="varlen"):
-        qk.quant_int8_fixed(x, torch.ones(1, 1, 1, 1), with_norm=True)
+    assert len(qk.quant_int8_groupwise(x, 16, with_norm=True)) == 3
+    assert len(qk.quant_int8_groupwise(x, 16, dot_with=x.to(torch.int8))) == 3
+    assert len(qk.quant_int8_fixed(x, torch.ones(1, 1, 1, 1), with_norm=True)) == 2
+    with pytest.raises(TypeError):
+        qk.quant_int8_groupwise(x, 16, segment_ids=torch.zeros(1, 128, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        qk.quant_int8_segmented(x, torch.zeros(1, 64, dtype=torch.int32), 16)
+    with pytest.raises(ValueError):
+        qk.quant_int8_groupwise(x, 16, dot_with=x[:, :, :64].to(torch.int8))
     with pytest.raises(NotImplementedError):
         qk.quant_int8_groupwise(x, 48)
     with pytest.raises(NotImplementedError):
