@@ -51,10 +51,16 @@ def _cuda_caps(index: int) -> DeviceCapabilities:
 
 def detect(device=None) -> DeviceCapabilities:
     """Capabilities of ``device`` (a ``torch.device``, a string, or a tensor,
-    whose device is taken)."""
+    whose device is taken); with no argument, of the first CUDA card
+    (``cuda:0``), which raises on a machine without one."""
     if isinstance(device, torch.Tensor):
         device = device.device
-    device = torch.device(device if device is not None else "cpu")
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("dispatch.detect(): no CUDA device; pass device='cpu' "
+                               "for the CPU row")
+        device = "cuda:0"
+    device = torch.device(device)
     if device.type == "cpu":
         return _CPU
     if device.type == "cuda":

@@ -113,6 +113,7 @@ class JointBlock(nn.Module):
 
     def __init__(self, cfg: DiTConfig, attn_fn: Optional[AttentionFn] = None, device=None):
         super().__init__()
+        device = torch.device("cuda" if device is None else device)
         self.cfg = cfg
         self.attn_fn = attn_fn or sage_dot_product_attention
         h, dt = cfg.hidden, cfg.dtype
@@ -147,10 +148,12 @@ class DiT(nn.Module):
     """Video DiT: patchify(latents) ++ text -> N joint blocks -> unpatchify.
 
     ``attn_fn`` is a callable, or a per-layer selector (``_per_layer`` set)
-    mapping a block index to a callable."""
+    mapping a block index to a callable.  The parameters live on ``device``,
+    the first CUDA card unless told otherwise."""
 
     def __init__(self, cfg: DiTConfig, attn_fn: Optional[AttentionFn] = None, device=None):
         super().__init__()
+        device = torch.device("cuda" if device is None else device)
         self.cfg = cfg
         h, dt, p, C = cfg.hidden, cfg.dtype, cfg.patch, cfg.in_channels
         self.patch_embed = Dense(p * p * C, h, dt, device=device)

@@ -119,9 +119,32 @@ def sage_joint_attention_ragged(query, key, value, text_mask,
     return torch.cat([out_t, out[:, T:]], dim=1).to(query.dtype)
 
 
-def _exact_attention(q, k, v, *args, **kwargs):
-    """The port's exact attention for a skipped layer: bf16 flash (B4)."""
-    return flash_attention(q, k, v, tensor_layout="NHD").to(q.dtype)
+def flash_dot_product_attention(query, key, value, bias=None, mask=None, *,
+                                scale: Optional[float] = None, is_causal: bool = False,
+                                query_seq_lengths=None, key_value_seq_lengths=None,
+                                local_window_size=None, implementation=None,
+                                attention_sinks: int = 0):
+    """The port's exact attention with ``jax.nn.dot_product_attention``'s
+    arguments (NHD), on its bf16 flash kernel (B4): ``is_causal``, ``scale``
+    and a causal ``local_window_size=(left, 0)`` (row r attends ``[r -
+    left, r]``, plus ``attention_sinks`` first keys).  Masks, biases,
+    sequence lengths and other windows raise."""
+    sliding = 0
+    if local_window_size is not None:
+        lw = (local_window_size if isinstance(local_window_size, (tuple, list))
+              else (local_window_size, local_window_size))
+        if not (is_causal and lw[1] == 0):
+            raise NotImplementedError("flash_dot_product_attention takes causal windows "
+                                      "(left, 0) only")
+        sliding = int(lw[0]) + 1
+    for name, val in dict(bias=bias, mask=mask, query_seq_lengths=query_seq_lengths,
+                          key_value_seq_lengths=key_value_seq_lengths).items():
+        if val is not None:
+            raise NotImplementedError(f"flash_dot_product_attention({name}=...) is not "
+                                      "supported")
+    return flash_attention(query, key, value, tensor_layout="NHD", is_causal=is_causal,
+                           sm_scale=scale, sliding_window=sliding,
+                           attention_sinks=attention_sinks).to(query.dtype)
 
 
 def layered_attention(default_fn=None, overrides=None, skip_layers=()):
@@ -139,7 +162,7 @@ def layered_attention(default_fn=None, overrides=None, skip_layers=()):
 
     def select(i: int):
         if i in skip:
-            return _exact_attention
+            return flash_dot_product_attention
         return overrides.get(i, default_fn)
 
     select._per_layer = True

@@ -26,7 +26,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext")
+SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
+           "decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -40,6 +41,12 @@ _ATTN_ARGS = [_I] * 6 + [_P] * 4 + [_LL] * 12 + [_P] * 8 + [_I] * 7 + [_F, _P]
 # scales, window, sinks
 _ATTN_EXT_ARGS = _ATTN_ARGS[:-1] + [_P, _P] + [_LL] * 3 + [_I] + [_P] * 8 + [_I, _I, _P]
 
+# (paged, vkind, D), (q, k, v, ks), 8 strides, (lens, offsets, table, lpage,
+# win_lo), 15 shape/mode ints, fold, (v_scale, v_mean), vs_sb, vs_mul, (pm,
+# pl, pacc, out), out_f32, lse, lse_mode, lse_off, stream
+_DECODE_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 8 + [_P] * 5 + [_I] * 15 + [_F] + [_P, _P, _LL, _F]
+                + [_P] * 4 + [_I, _P, _I, _F, _P])
+
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
     "sage_prep_kv": ("prep_kv", [_I, _I, _I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
@@ -51,13 +58,15 @@ SIGNATURES = {
     "sage_attn_fwd_q8": ("attention_q8", _ATTN_ARGS),
     "sage_attn_fwd_ext": ("attention_ext", _ATTN_EXT_ARGS),
     "sage_attn_fwd_q8_ext": ("attention_q8_ext", _ATTN_EXT_ARGS),
+    "sage_decode": ("decode", _DECODE_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "quant": "sage_quant_error_string",
                  "attention": "sage_attn_error_string",
                  "attention_q8": "sage_attn_q8_error_string",
                  "attention_ext": "sage_attn_ext_error_string",
-                 "attention_q8_ext": "sage_attn_q8_ext_error_string"}
+                 "attention_q8_ext": "sage_attn_q8_ext_error_string",
+                 "decode": "sage_decode_error_string"}
 
 _lock = threading.Lock()
 _libs: dict = {}

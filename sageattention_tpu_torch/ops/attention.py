@@ -1,4 +1,4 @@
-"""SageAttention forward kernel and its plain version (B1-B9).
+"""SageAttention forward kernels and their plain versions (B1-B9, B11).
 
 Counterpart of ``sageattention_tpu/ops/attention.py``: ``AttnConfig`` keeps
 the JAX field names and ``attention_call`` takes the same inputs.  The
@@ -37,6 +37,14 @@ itself and picks its own tiles, so ``block_q``/``block_k``/
 ``block_k_inner`` are accepted and ignored, and the online softmax walks
 64-column kv tiles.  ``lmin`` comes back as ``[B, Hq, ceil(Sq/64)]``, one
 minimum row denominator per 64-row query tile.
+
+The decode configuration (B11: a dynamic length ``kv_true_dyn``, dynamic
+causal ``offsets``, ``causal_row_mod`` for folded verify windows, any
+``kv_split``; at most 32 query rows) goes to ``csrc/decode.cu``, a split-KV
+kernel whose splits are its own choice (:func:`decode_splits`); its keys
+are ``B11-<V format>`` with ``-causal`` or ``-causal-mod``.  Its plain
+version (:func:`decode_plain`) walks the same splits and 64-token tiles.
+The same fields over more rows are the ring's (B10), not ported yet.
 
 A CPU tensor takes the plain version, a CUDA tensor the kernel; there is no
 fallback between the two.  ``attention_call.launches`` counts kernel
@@ -107,10 +115,44 @@ class AttnConfig:
                 or self.pv_via_bf16)
 
 
-_LATER = {
-    "causal_dynamic": "B10 (ring offsets)", "kv_len_dynamic": "B10",
-    "causal_row_mod": "B11 (decode)", "p_sim_fp4": "queue 1 item 14 (low-bit simulation)",
-}
+_LATER = {"p_sim_fp4": "queue 1 item 14 (low-bit simulation)"}
+DECODE_ROWS = 32            # query rows of one decode block (JAX's _BQ)
+DECODE_SPLIT_BLOCKS = 264   # decode blocks to aim for: two on each of the H100's 132 SMs
+DECODE_MAX_SPLITS = 32
+
+
+def is_decode(cfg: AttnConfig) -> bool:
+    """True for the decode configuration (B11): a dynamic length, dynamic
+    causal offsets, folded verify rows or a KV split, as
+    ``sageattn_decode`` sets them.  At prefill sizes the same fields are
+    the ring's (B10)."""
+    return bool(cfg.kv_len_dynamic or cfg.causal_dynamic or cfg.causal_row_mod
+                or cfg.kv_split != 1)
+
+
+def _decode_name(cfg: AttnConfig) -> str:
+    """B11's launch key: ``B11-<V format>``, ``-causal`` for a verify window,
+    ``-causal-mod`` when its rows are folded GQA heads."""
+    if not (cfg.quantized and cfg.fuse_q_quant and not cfg.fold_k_scale
+            and cfg.softmax_mode == "online" and cfg.compute_dtype == "native"):
+        raise NotImplementedError(
+            "B11 (decode) takes a fused int8 Q, per-token K scales (fold_k_scale=False), "
+            "the online softmax and native compute, as sageattn_decode builds them")
+    if (cfg.masked != "none" or cfg.segmented or cfg.window or cfg.fuse_k_rows
+            or cfg.pv_via_bf16):
+        raise ValueError("the decode configuration composes with no masks, segments, "
+                         "window or row K scales")
+    if cfg.pv_dtype not in ("int8", "fp8", "bf16"):
+        raise ValueError(f"unknown pv_dtype {cfg.pv_dtype!r}")
+    if cfg.causal != cfg.causal_dynamic or (cfg.causal_row_mod and not cfg.causal):
+        raise ValueError("decode causality comes from dynamic offsets (causal and "
+                         "causal_dynamic together; causal_row_mod only with them)")
+    if cfg.kv_split < 1:
+        raise ValueError(f"bad kv_split {cfg.kv_split}")
+    name = f"B11-{cfg.pv_dtype}"
+    if cfg.causal:
+        name += "-causal-mod" if cfg.causal_row_mod else "-causal"
+    return name
 
 
 def _check_options(cfg: AttnConfig) -> None:
@@ -173,10 +215,10 @@ def config_name(cfg: AttnConfig) -> str:
         val = getattr(cfg, field)
         if val:
             raise NotImplementedError(f"AttnConfig.{field}={val!r} arrives with {slice_}")
-    if cfg.kv_split != 1:
-        raise NotImplementedError("AttnConfig.kv_split arrives with B11 (decode)")
     if cfg.layout != "HND":
         raise ValueError("attention_call operates in HND; transpose first")
+    if is_decode(cfg):
+        return _decode_name(cfg)
     if cfg.softmax_mode not in ("static", "online"):
         raise ValueError(f"unknown softmax_mode {cfg.softmax_mode!r}")
     _check_options(cfg)
@@ -210,6 +252,12 @@ def _launch_keys() -> tuple:
             keys.setdefault(config_name(cfg))
         except ValueError:
             continue
+    for pv, causal, mod in itertools.product(("int8", "fp8", "bf16"), (False, True), (0, 2)):
+        if mod and not causal:
+            continue
+        keys.setdefault(config_name(AttnConfig(
+            quantized=True, pv_dtype=pv, fuse_q_quant=True, kv_len_dynamic=True,
+            causal=causal, causal_dynamic=causal, causal_row_mod=mod)))
     return tuple(keys)
 
 
@@ -543,6 +591,201 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     return out, lse, lmin
 
 
+# ------------------------------------------------------------ decode (B11) ----
+# The decode kernel (csrc/decode.cu) splits each sequence's live 64-token
+# tiles into ``decode_splits`` contiguous shares, one block each, and merges
+# the shares' (m, l, acc) exactly.  The plain versions below walk the same
+# shares and tiles, so a quantized P is rounded against the same running
+# maxima on both sides.
+
+def decode_splits(B: int, Hk: int) -> int:
+    """KV splits of one decode launch for ``B`` sequences of ``Hk`` KV heads:
+    enough blocks for the card, at most ``DECODE_MAX_SPLITS``.  A function of
+    these two only, so a result does not depend on the GQA fold or on the
+    static bucket."""
+    return max(1, min(DECODE_MAX_SPLITS, -(-DECODE_SPLIT_BLOCKS // (B * Hk))))
+
+
+def split_online_plain(s, vf, p_mode, n_split):
+    """Online softmax of one sequence over ``s [H, R, n*64]`` masked base-2
+    scores and ``vf [H, n*64, D]``, walked in ``n_split`` contiguous shares
+    of 64-column tiles and merged exactly.  Returns ``(m, l, acc)``."""
+    H, R, n_tok = s.shape
+    D = vf.shape[-1]
+    n = n_tok // KV_TILE
+    per = -(-n // n_split) if n else 0
+    parts = []
+    for sp in range(n_split if n else 0):
+        u0, u1 = sp * per, min(sp * per + per, n)
+        if u0 >= u1:
+            continue
+        m = torch.full((H, R, 1), M_CLAMP, device=s.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((H, R, D), device=s.device)
+        for u in range(u0, u1):
+            st = s[..., u * KV_TILE:(u + 1) * KV_TILE]
+            m_next = torch.clamp_min(torch.maximum(m, st.amax(dim=-1, keepdim=True)), M_CLAMP)
+            alpha = torch.exp2(m - m_next)
+            p, l_cur = _p_tile(st, m_next, p_mode)
+            l = alpha * l + l_cur
+            acc = acc * alpha + torch.matmul(p, vf[:, u * KV_TILE:(u + 1) * KV_TILE])
+            m = m_next
+        parts.append((m, l, acc))
+    mg = torch.full((H, R, 1), M_CLAMP, device=s.device)
+    for m, _, _ in parts:
+        mg = torch.maximum(mg, m)
+    l = torch.zeros_like(mg)
+    acc = torch.zeros((H, R, D), device=s.device)
+    for m, lp, ap in parts:
+        w = torch.exp2(m - mg)
+        l = l + w * lp
+        acc = acc + w * ap
+    return mg[..., 0], l[..., 0], acc
+
+
+def decode_epilogue(m, l, acc, v_scale, vs_mul, v_mean):
+    """``acc / l`` (l = 0 reads as 1), times ``v_scale * vs_mul``, plus
+    ``v_mean``, as the merge launch computes it."""
+    l_safe = torch.where(l == 0, torch.ones_like(l), l)
+    o = acc * (1.0 / l_safe)[..., None]
+    if v_scale is not None:
+        o = o * (v_scale * vs_mul)
+    if v_mean is not None:
+        o = o + v_mean
+    return o
+
+
+def _row_quant(qf):
+    """Per-row int8 codes and scales of ``qf`` (the kernel's fused Q)."""
+    a = qf.abs().amax(dim=-1, keepdim=True)
+    qs = torch.where(a > 0, a * _F32(1.0 / 127.0), torch.ones_like(a))
+    return torch.clamp(torch.round(qf * (1.0 / qs)), -127, 127), qs
+
+
+def _pad_rows(x, n, value=0.0):
+    """``x [..., S, D]`` cut or zero-padded along S to ``n`` rows."""
+    if x.shape[-2] >= n:
+        return x[..., :n, :]
+    return torch.nn.functional.pad(x, (0, 0, 0, n - x.shape[-2]), value=value)
+
+
+def decode_plain(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, offsets):
+    """Plain version of B11 on HND inputs: ``q [B,Hq,R,D]`` float, ``k
+    [B,Hk,Sk,D]`` int8 codes with ``k_scale [B,Hk,1,Sk]``, ``v`` int8/e4m3
+    codes or bf16, the true length ``kv_true`` and, for a causal window,
+    ``offsets`` (q_start, kv_start).  Returns ``(out, lse_base2 | None)``."""
+    B, Hq, R, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hk
+    kv_len = max(0, min(int(kv_true.reshape(-1)[0]), Sk))
+    hi = min(-(-Sk // KV_TILE), -(-kv_len // KV_TILE))
+    n_tok = hi * KV_TILE
+    n_split = decode_splits(B, Hk)
+    p_mode = "bf16" if cfg.pv_dtype == "bf16" else cfg.pv_dtype
+    q8, qs = _row_quant(q.float() * _F32(cfg.sm_scale * LOG2E))
+    cols = torch.arange(n_tok, device=q.device)[None, :]
+    keep = (cols < kv_len).expand(R, n_tok)
+    if cfg.causal:
+        q_start, kv_start = (int(x) for x in offsets.reshape(-1)[:2])
+        rows = torch.arange(R, device=q.device)
+        pos = q_start + (rows % cfg.causal_row_mod if cfg.causal_row_mod else rows)
+        keep = keep & (cols + kv_start <= pos[:, None])
+    vs_mul = _F32(1.0 / 127.0) if p_mode == "int8" else 1.0
+    outs, lses = [], []
+    with _no_tf32():
+        for b in range(B):
+            kb = _pad_rows(k[b].float(), n_tok).repeat_interleave(G, dim=0)
+            ksb = torch.nn.functional.pad(k_scale[b, :, 0, :n_tok].float(),
+                                          (0, n_tok - min(n_tok, Sk)), value=1.0)
+            s = torch.matmul(q8[b], kb.transpose(-1, -2)) * qs[b]
+            s = s * ksb.repeat_interleave(G, dim=0)[:, None, :]
+            s = torch.where(keep, s, MASK_NEG)
+            vb = _pad_rows(_v_operand(v[b], cfg.pv_dtype), n_tok).repeat_interleave(G, dim=0)
+            m, l, acc = split_online_plain(s, vb, p_mode, n_split)
+            vs = None if v_scale is None else _per_q_head(v_scale[b:b + 1].float(), Hq)[0]
+            vm = None if v_mean is None else _per_q_head(v_mean[b:b + 1].float(), Hq)[0]
+            outs.append(decode_epilogue(m, l, acc, vs, vs_mul, vm).to(cfg.out_dtype))
+            lse = m + torch.log2(torch.clamp_min(l, 1e-37))
+            lses.append(lse - _F32(FP8_OFFSET_LOG2) if p_mode == "fp8" else lse)
+    return torch.stack(outs), (torch.stack(lses) if cfg.emit_lse else None)
+
+
+_VKIND = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.bfloat16: 2}
+
+
+def decode_launch(*, paged, q, k, v, ks, lens, Hk, S,
+                  n_units, n_split, fold=1.0, offsets=None, table=None, lpage=None,
+                  win_lo=None, n_slots=0, page=0, causal=False, row_mod=0, window_T=1,
+                  sliding=False, sinks=0, sink_pages=0, v_scale=None, vs_mul=1.0,
+                  v_mean=None, out_dtype=torch.bfloat16, lse_mode=0, lse_off=0.0):
+    """Launch ``csrc/decode.cu`` (the split walk, then the merge) for ``q
+    [B, Hg, R, D]`` over the dense cache or the pools ``k``, ``v`` (rows of
+    ``D`` along the last axis) and the per-token K scales ``ks`` (tokens
+    along the last axis); return ``(out [B, Hg, R, D], lse_base2 | None)``.
+    Every length, offset and table stays on the device."""
+    B, Hg, R, D = q.shape
+    if D not in (64, 128):
+        raise NotImplementedError(f"the decode kernel takes head_dim 64/128, got {D}")
+    if not 1 <= R <= DECODE_ROWS:
+        raise ValueError(f"the decode kernel takes 1..{DECODE_ROWS} query rows, got {R}")
+    if v.dtype not in _VKIND:
+        raise TypeError(f"V codes must be int8, float8_e4m3fn or bfloat16, got {v.dtype}")
+    if ks.stride(-1) != 1:
+        raise ValueError("the per-token K scales need unit stride along the tokens")
+    dev = q.device
+    q32 = q.float().contiguous()
+    k, v = _build.vector_aligned(k), _build.vector_aligned(v)
+    vs, vm = _f32c(v_scale), _f32c(v_mean)
+    per_batch = [x for x in (vs, vm) if x is not None and x.shape[0] > 1]
+    vs_sb = Hk * D if per_batch else 0   # per-sequence (dense) or pool-global scales
+    pm = torch.empty((B * Hg, n_split, R), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((B * Hg, n_split, R, D), dtype=torch.float32, device=dev)
+    out_f32 = out_dtype == torch.float32
+    out = torch.empty((B, Hg, R, D), dtype=torch.float32 if out_f32 else torch.bfloat16,
+                      device=dev)
+    lse = torch.empty((B, Hg, R), dtype=torch.float32, device=dev) if lse_mode else None
+    ints = [x if x is None else x.to(torch.int32).contiguous()
+            for x in (lens, offsets, table, lpage, win_lo)]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    _build.call("sage_decode", dev, int(paged), _VKIND[v.dtype], D, q32.data_ptr(),
+                k.data_ptr(), v.data_ptr(), ks.data_ptr(), *k.stride()[:3], *v.stride()[:3],
+                ks.stride(0), ks.stride(1),
+                *(ptr(x) for x in ints), B, Hg, Hk, R, n_units, n_slots, page, S, int(causal),
+                row_mod, window_T, int(sliding), sinks, sink_pages, n_split, _F32(fold),
+                ptr(vs), ptr(vm), vs_sb, _F32(vs_mul), pm.data_ptr(), pl.data_ptr(),
+                pacc.data_ptr(), out.data_ptr(), int(out_f32), ptr(lse), lse_mode,
+                _F32(lse_off))
+    if out.dtype != out_dtype:
+        out = out.to(out_dtype)
+    return out, lse
+
+
+def decode_kernel(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, offsets):
+    """Launch B11 on CUDA tensors; same arguments and returns as
+    :func:`decode_plain`."""
+    name = config_name(cfg)
+    B, Hq, R, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    if k.dtype != torch.int8:
+        raise TypeError("decode takes int8 K codes")
+    if cfg.pv_dtype == "bf16":
+        v = v.to(torch.bfloat16)
+    elif v.dtype != _V_DTYPE[cfg.pv_dtype]:
+        raise TypeError(f"pv_dtype={cfg.pv_dtype!r} takes {_V_DTYPE[cfg.pv_dtype]} V codes")
+    fp8 = cfg.pv_dtype == "fp8"
+    out, lse = decode_launch(
+        paged=False, q=q, k=k, v=v, ks=k_scale.float(), lens=kv_true.reshape(1), Hk=Hk, S=Sk,
+        n_units=-(-Sk // KV_TILE), n_split=decode_splits(B, Hk), fold=cfg.sm_scale * LOG2E,
+        offsets=offsets.reshape(-1) if cfg.causal else None, causal=cfg.causal,
+        row_mod=cfg.causal_row_mod, v_scale=v_scale,
+        vs_mul=(1.0 / 127.0) if cfg.pv_dtype == "int8" else 1.0, v_mean=v_mean,
+        out_dtype=cfg.out_dtype, lse_mode=1 if cfg.emit_lse else 0,
+        lse_off=FP8_OFFSET_LOG2 if fp8 else 0.0)
+    attention_call.launches[name] += 1
+    return out, lse
+
+
 def _segment_ids(x, B, S, what):
     """Segment ids or positions as contiguous int32 ``[B, S]``."""
     if x is None:
@@ -581,11 +824,15 @@ def attention_call(
     ``attention_call`` does.
     """
     name = config_name(cfg)
-    for arg, val in dict(offsets=offsets, kv_true_dyn=kv_true_dyn).items():
-        if val is not None:
-            raise NotImplementedError(f"attention_call({arg}=...) arrives with B10 (ring)")
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
+    if is_decode(cfg):
+        return _decode_call(q, k, v, k_scale, v_scale, v_mean, kv_true_dyn, offsets,
+                            cfg, q_scale, k_head_scale, kn_max, q_segments, attn_mask)
+    for arg, val in dict(offsets=offsets, kv_true_dyn=kv_true_dyn).items():
+        if val is not None:
+            raise NotImplementedError(f"attention_call({arg}=...) outside the decode "
+                                      "configuration arrives with B10 (ring)")
     if Hq % Hk or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if cfg.causal and Sq != Sk:
@@ -632,6 +879,42 @@ def attention_call(
     if cfg.softmax_mode == "static" and cfg.quantized and cfg.fuse_q_quant:
         return out, lse, lmin
     return out, lse
+
+
+
+def _decode_call(q, k, v, k_scale, v_scale, v_mean, kv_true, offsets, cfg,
+                 q_scale, k_head_scale, kn_max, q_segments, attn_mask):
+    """``attention_call`` in the decode configuration (B11): at most
+    ``DECODE_ROWS`` query rows; more rows with dynamic offsets or length
+    are the ring's configuration (B10)."""
+    B, Hq, Sq, D = q.shape
+    _, Hk, Sk, _ = k.shape
+    if Sq > DECODE_ROWS:
+        raise NotImplementedError(
+            f"dynamic offsets or lengths over {Sq} > {DECODE_ROWS} query rows arrive with "
+            "B10 (ring)")
+    if Hq % Hk or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if any(x is not None for x in (q_scale, k_head_scale, kn_max, q_segments, attn_mask)):
+        raise ValueError("decode takes no q_scale, k_head_scale, kn_max, segments or mask")
+    if k_scale is None or tuple(k_scale.shape) != (B, Hk, 1, Sk):
+        raise ValueError("decode takes per-token K scales k_scale [B, Hk, 1, Sk]")
+    if (cfg.pv_dtype != "bf16") != (v_scale is not None):
+        raise ValueError("v_scale is given iff V is quantized (pv_dtype int8/fp8)")
+    if cfg.fuse_v_mean != (v_mean is not None):
+        raise ValueError("v_mean is given iff cfg.fuse_v_mean")
+    if cfg.causal and offsets is None:
+        raise ValueError("causal_dynamic needs offsets (q_start, kv_start)")
+    if kv_true is None:
+        if cfg.kv_len_dynamic:
+            raise ValueError("kv_len_dynamic needs kv_true_dyn")
+        kv_true = torch.full((1,), cfg.kv_len or Sk, dtype=torch.int32, device=q.device)
+    args = (q, k, v, cfg, k_scale, v_scale, v_mean, kv_true, offsets)
+    if q.device.type == "cpu":
+        return decode_plain(*args)
+    if q.device.type == "cuda":
+        return decode_kernel(*args)
+    raise NotImplementedError(f"no kernel for device {q.device}")
 
 
 attention_call.launches = {name: 0 for name in LAUNCH_KEYS}

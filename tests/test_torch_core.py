@@ -234,7 +234,10 @@ def test_inputs_that_require_grad_raise():
 
 def test_dispatch_rows():
     assert dispatch.detect("cpu").default_pv_dtype == "int8"
-    assert dispatch.detect().generation == "cpu"
+    assert dispatch.detect("cpu").generation == "cpu"
+    if not torch.cuda.is_available():   # no argument means the first CUDA card
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            dispatch.detect()
     # sm_90 has fast fp8 (passed on as fp8_native_dot) but keeps pv int8
     assert dispatch._SM90.has_fast_fp8 and dispatch._SM90.default_pv_dtype == "int8"
     assert not dispatch.detect("cpu").has_fast_fp8

@@ -62,7 +62,7 @@ def _models(jax_attn, port_attn, cfg=SMALL):
     # the attention holds no parameters: initialize through exact attention
     params = jdit.make_dit(jdit.DiTConfig(**cfg)).init(
         jax.random.PRNGKey(0), jnp.asarray(lat), jnp.asarray(txt), jnp.asarray(t))
-    tm = tdit.DiT(tdit.DiTConfig(**cfg), attn_fn=port_attn)
+    tm = tdit.DiT(tdit.DiTConfig(**cfg), attn_fn=port_attn, device="cpu")
     tm.load_state_dict(dit_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     return jm, params, tm
 
@@ -148,7 +148,7 @@ def test_per_layer_attention_selection():
         return fn
 
     select._per_layer = True
-    model = tdit.DiT(tdit.DiTConfig(**SMALL), attn_fn=select).init_weights(1)
+    model = tdit.DiT(tdit.DiTConfig(**SMALL), attn_fn=select, device="cpu").init_weights(1)
     lat, txt, t = _inputs()
     with torch.no_grad():
         out = model(torch.from_numpy(lat), torch.from_numpy(txt), torch.from_numpy(t))
@@ -157,7 +157,7 @@ def test_per_layer_attention_selection():
 
 def test_zero_init_gates_make_blocks_identity():
     cfg = tdit.DiTConfig(**{**SMALL, "zero_init_gates": True})
-    model = tdit.DiT(cfg, attn_fn=oracle_nhd).init_weights(2)
+    model = tdit.DiT(cfg, attn_fn=oracle_nhd, device="cpu").init_weights(2)
     g = torch.Generator().manual_seed(3)
     x = torch.randn(1, 144, 128, generator=g).to(torch.bfloat16)
     c = torch.randn(1, 128, generator=g).to(torch.bfloat16)

@@ -261,7 +261,8 @@ def test_layered_ragged_dit_matches_jax():
         return sage_joint_attention_ragged(q, k, v, torch.from_numpy(tmask), pv_dtype="int8")
 
     tm = DiT(DiTConfig(**cfg), attn_fn=layered_attention(default_fn=t_ragged,
-                                                         skip_layers=(cfg["depth"] - 1,)))
+                                                         skip_layers=(cfg["depth"] - 1,)),
+             device="cpu")
     tm.load_state_dict(dit_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, params)))
     with torch.no_grad():
         to = tm(*(torch.from_numpy(x) for x in (lat, txt, t)))
