@@ -64,7 +64,26 @@ Phases (any failure exits non-zero):
    Mistral-7B-v0.1 (4 of 32 blocks) sliding-window decode with and without
    sinks; the int8/fp8/bf16 caches and pools at kernel scale (B = 8,
    32,768 tokens) with the lse hook and the deferred and staged steps;
-   then every B11/D1 configuration against its plain version.
+   then every B11/D1 configuration against its plain version;
+9. training (C1, C2) and the repairs of slice 5, outside inference mode,
+   each path counted on its own: head dim 256 at Gemma-7B's attention
+   widths (16 heads, hd 256, 8,192 tokens, causal: ``sageattn``, the H100
+   mode and flash against the f32 oracle; a B = 1 decode over an 8 K dense
+   cache and a paged batch); the T = 9 verify window at (B = 8, 32/8
+   heads, 32 K), folded as in JAX, against the unfolded call; a
+   Llama-3-8B-width fine-tune (2 of 32 blocks, f32 weights and Adam, B = 1,
+   S = 8,192, eight Adam steps) with exact attention (one
+   ``F.scaled_dot_product_attention`` call, the oracle), with
+   ``sage_dot_product_attention`` (the bf16 backward) and with
+   ``quant_backward=True`` (the int8 one): ms per step, losses, the step-0
+   gradients against the exact run's; a CogVideoX1.5-width DiT diffusion
+   step (2 of 42 blocks) with the int8 and bf16 backward and exact
+   attention; Mistral-7B-v0.1 window gradients with 0 and 4 sinks and the
+   left-padded Llama-3-8B batch's mask gradients against the f32 exact
+   gradient; then every C1/C2 configuration these paths launched against
+   ``attention_backward_plain`` on sampled heads, with its time, bound
+   and, in bf16, the time of one ``torch.autograd.grad`` through
+   ``F.scaled_dot_product_attention`` (flash backend).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -88,6 +107,8 @@ TPU_KERNELS = {
     "A6": "sageattention_tpu/ops/quant_pallas.py:69",
     "B": "sageattention_tpu/ops/attention.py:251",
     "D1": "sageattention_tpu/ops/paged_decode.py:49",
+    "C1": "sageattention_tpu/ops/backward_pallas.py:85",
+    "C2": "sageattention_tpu/ops/backward_pallas.py:164",
 }
 SRC_PREP = "sageattention_tpu_torch/csrc/prep_kv.cu"
 SRC_QUANT = "sageattention_tpu_torch/csrc/quant.cu"
@@ -162,8 +183,12 @@ def main() -> int:
         kernels += run_slice3(torch, st, totals)
         torch.cuda.empty_cache()
         kernels += run_serving(torch, st, totals)
+    torch.cuda.empty_cache()
+    # training needs autograd: phase 9 runs outside inference mode
+    phase9 = run_training(torch, st, totals)
     for e in kernels:   # launches over every counted path
         e["launches"] = totals[e["name"]]
+    kernels += phase9
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -188,29 +213,30 @@ def realistic_qkv(torch, B, Hq, Hk, S, D, seed):
 
 
 def counters():
+    from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.ops import quant_kernels as qk
     from sageattention_tpu_torch.ops.attention import attention_call
     from sageattention_tpu_torch.ops.paged_decode import paged_decode_call
     from sageattention_tpu_torch.ops.quant_fused import prep_k_onepass, prep_v_onepass
-    return prep_k_onepass, prep_v_onepass, qk, attention_call, paged_decode_call
+    return prep_k_onepass, prep_v_onepass, qk, attention_call, paged_decode_call, tbwd.LAUNCHES
 
 
 def reset_counts():
-    pk, pv, qk, att, pd = counters()
+    pk, pv, qk, att, pd, bwd = counters()
     pk.launches = pv.launches = qk.channel_stats.launches = 0
     qk.quant_int8_groupwise.launches = qk.quant_int8_segmented.launches = 0
-    for d in (qk.quant_int8_fixed.launches, att.launches, pd.launches):
+    for d in (qk.quant_int8_fixed.launches, att.launches, pd.launches, bwd):
         for name in d:
             d[name] = 0
 
 
 def read_counts():
-    pk, pv, qk, att, pd = counters()
+    pk, pv, qk, att, pd, bwd = counters()
     return {"A1": pk.launches, "A2": pv.launches, "A5": qk.channel_stats.launches,
             "A6-group": qk.quant_int8_groupwise.launches,
             "A6-scalar": qk.quant_int8_fixed.launches["scalar"],
             "A6-channel": qk.quant_int8_fixed.launches["channel"],
-            "A6-seg": qk.quant_int8_segmented.launches, **att.launches, **pd.launches}
+            "A6-seg": qk.quant_int8_segmented.launches, **att.launches, **pd.launches, **bwd}
 
 
 def entries(st):
@@ -419,27 +445,38 @@ def run(torch, st):
 
 class Recorder:
     """Keeps the inputs of the first launch of every attention configuration
-    while a counted path runs, so that the kernel checks replay exactly what
-    the path launched."""
+    (forward, decode, and the backward entry, whose one call launches C1 and
+    C2) while a counted path runs, so that the kernel checks replay exactly
+    what the path launched."""
 
     def __init__(self, seen):
         self.seen = seen
 
     def __enter__(self):
         from sageattention_tpu_torch.ops import attention as tatt
+        from sageattention_tpu_torch.ops import backward as tbwd
         from sageattention_tpu_torch.ops import paged_decode as tpd
+
+        def bwd_keys(a, kw):   # one call of the entry launches C1 and C2
+            return [tbwd.config_name(c, kw.get("quantized", False), kw["is_causal"],
+                                     kw.get("window", 0), kw.get("attn_mask") is not None)
+                    for c in ("C1", "C2")]
+
         self.patched = [(tatt, "attention_kernel", lambda a, kw: tatt.config_name(a[3])),
                         (tatt, "decode_kernel", lambda a, kw: tatt.config_name(a[3])),
                         (tpd, "paged_decode_kernel", lambda a, kw: tpd.config_name(
                             a[3].dtype, kw["window"], kw.get("win_lo") is not None,
-                            kw.get("sinks", 0), kw.get("emit_state", False)))]
+                            kw.get("sinks", 0), kw.get("emit_state", False))),
+                        (tbwd, "attention_backward", bwd_keys)]
         self.reals = []
         for mod, attr, key in self.patched:
             real = getattr(mod, attr)
             self.reals.append(real)
 
             def record(*args, _real=real, _key=key, **kw):
-                self.seen.setdefault(_key(args, kw), (args, kw))
+                keys = _key(args, kw)
+                for k in keys if isinstance(keys, list) else [keys]:
+                    self.seen.setdefault(k, (args, kw))
                 return _real(*args, **kw)
 
             setattr(mod, attr, record)
@@ -850,47 +887,55 @@ def live_pairs(torch, args, kw):
     return n
 
 
+def attn_kernel_entry(torch, name, args, kw, launches, label=None):
+    """One attention launch ``(args, kw)`` of configuration ``name`` against
+    its plain version on sampled heads at full length (fails the run if
+    they disagree), then its time at the launch's full shape, the bound
+    over the pairs its masks keep and, for flash, the library call's time.
+    Returns the JSON entry (named ``label``, ``name`` by default)."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
+    sub, skw = slice_heads(args, kw)
+    a = attention_kernel(*sub, **skw)
+    b, plain_ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
+    kept, note = static_kept_rows(torch, a, b, sub[0].shape[2])
+    d = calc_diff(a[0][kept], b[0][kept])
+    err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
+    ok = d < KERNEL_BAR
+    if a[1] is not None:
+        rows = (a[1] > -1e19) & (b[1] > -1e19) & kept
+        dl = float((a[1][rows] - b[1][rows]).abs().max()) if bool(rows.any()) else 0.0
+        ok = ok and dl < LSE_BAR and bool(torch.equal(rows, (b[1] > -1e19) & kept))
+    q, k = args[0], args[1]
+    shape = f"{tuple(q.shape)} Hk={k.shape[1]} causal={args[3].causal}"
+    check(ok, f"{label or name} vs plain on {sub[0].shape[1]} q heads of {shape}{note}: "
+              f"calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
+    ms = time_fn(lambda: attention_kernel(*args, **kw), warmup=2, reps=5) * 1e3
+    a = attention_kernel(*args, **kw)
+    moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
+                   *(x for x in kw.values() if isinstance(x, torch.Tensor)),
+                   *(x for x in a if x is not None))
+    pairs = live_pairs(torch, args, kw)
+    bound = attn_bound_pairs(args[3], pairs, q.shape[-1], moved)
+    lib = None
+    if name.startswith("B4-"):
+        lib = library_masked_ms(torch, args, kw)
+    elif name == "B4":
+        lib = library_ms(torch, q, k, args[2], args[3].causal)
+    return ext_entry(launches, label or name, err, ms, plain_ms, bound, lib,
+                     shape + f", {pairs} live pairs; plain on {sub[0].shape[1]} q heads")
+
+
 def ext_kernel_checks(torch, seen, totals):
     """Every B7-B9 configuration the paths launched, against its plain
     version on sampled heads at full length, with its time at the path's
     full shape; and A6's segmented mode at the varlen K shape."""
-    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
-    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
     entries, failures = [], []
     for name in sorted(n for n in seen if n not in KEYS):
-        args, kw = seen[name]
-        sub, skw = slice_heads(args, kw)
-        a = attention_kernel(*sub, **skw)
-        b, plain_ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
-        kept, note = static_kept_rows(torch, a, b, sub[0].shape[2])
-        d = calc_diff(a[0][kept], b[0][kept])
-        err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
-        ok = d < KERNEL_BAR
-        if a[1] is not None:
-            rows = (a[1] > -1e19) & (b[1] > -1e19) & kept
-            dl = float((a[1][rows] - b[1][rows]).abs().max()) if bool(rows.any()) else 0.0
-            ok = ok and dl < LSE_BAR and bool(torch.equal(rows, (b[1] > -1e19) & kept))
-        q, k = args[0], args[1]
-        shape = f"{tuple(q.shape)} Hk={k.shape[1]} causal={args[3].causal}"
-        what = (f"{name} vs plain on {sub[0].shape[1]} q heads of {shape}{note}: calc_diff "
-                f"{d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
-        print(("ok   " if ok else "FAIL ") + what, flush=True)
-        if not ok:
-            failures.append(what)
-            continue
-        ms = time_fn(lambda: attention_kernel(*args, **kw), warmup=2, reps=5) * 1e3
-        a = attention_kernel(*args, **kw)
-        moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
-                       *(x for x in kw.values() if isinstance(x, torch.Tensor)),
-                       *(x for x in a if x is not None))
-        pairs = live_pairs(torch, args, kw)
-        bound = attn_bound_pairs(args[3], pairs, q.shape[-1], moved)
-        lib = None
-        if name.startswith("B4-"):
-            lib = library_masked_ms(torch, args, kw)
-        entries.append(ext_entry(totals, name, err, ms, plain_ms, bound, lib,
-                                 shape + f", {pairs} live pairs; plain on {sub[0].shape[1]} "
-                                         "q heads"))
+        try:
+            entries.append(attn_kernel_entry(torch, name, *seen[name], totals.get(name, 0)))
+        except SmokeFailure as e:
+            failures.append(str(e))
     check(not failures, f"{len(failures)} B7-B9 configurations disagree with their plain "
                         "versions: " + "; ".join(failures))
     entries.append(segmented_quant_check(torch, totals))
@@ -916,14 +961,14 @@ def static_kept_rows(torch, a, b, Sq):
     return kept, f" ({int(safe.sum())} of {safe.numel()} tiles kept by the static check)"
 
 
-def ext_entry(totals, name, err, ms, plain_ms, bound, lib, shape):
+def ext_entry(launches, name, err, ms, plain_ms, bound, lib, shape):
     src = SRC_QUANT if name.startswith("A") else SRC_ATTN
     rep = TPU_KERNELS["A6"] if name.startswith("A") else TPU_KERNELS["B"]
     libs = "" if lib is None else f", library {lib:.3f} ms"
     print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound[0]:.3f} ms ({bound[1]}){libs} at {shape}", flush=True)
     return {"name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": totals.get(name, 0), "max_abs_err": err, "ms": ms,
+            "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib, "shape": shape}
 
@@ -964,7 +1009,8 @@ def segmented_quant_check(torch, totals):
     check(ok2, f"A6-seg with row norms and dots vs plain: {same2:.9f} of codes equal")
     err = max(float(worst), float((a[1] - b[1]).abs().max()), float((a[2] - b[2]).abs().max()))
     ms = time_fn(fk, warmup=3, reps=20) * 1e3
-    return ext_entry(totals, "A6-seg", err, ms, plain_ms, bytes_bound(nbytes(k) * 3 // 2), None,
+    return ext_entry(totals.get("A6-seg", 0), "A6-seg", err, ms, plain_ms,
+                     bytes_bound(nbytes(k) * 3 // 2), None,
                      f"{tuple(k.shape)} K, group 64, {len(lens)} segments")
 
 
@@ -1444,7 +1490,7 @@ def _window_oracle(torch, q, k, v):
 def kernel_scale_phase(torch, st, seen, totals):
     """8e: the cache formats and state hooks at kernel scale (B = 8, 32/8
     heads, hd 128, lengths up to 32,768): dense int8/fp8/bf16 caches at
-    T = 1, 4 (folded) and 9 (unfolded); ragged pools with return_state; a
+    T = 1, 4 (folded) and 25 (unfolded); ragged pools with return_state; a
     T = 4 paged window; the deferred and staged steps against classic
     steps."""
     H, Hk, D = SERVE["attn"]
@@ -1470,8 +1516,10 @@ def kernel_scale_phase(torch, st, seen, totals):
         for fmt in ("int8", "fp8", "bf16"):
             bar = DECODE_FP8_BAR if fmt == "fp8" else DECODE_BAR
             cache = st.kv_cache_init(k[:, :, :L], v[:, :, :L], L + 64, v_format=fmt)
-            # the last window has too many rows to fold its G heads (B11-int8-causal)
-            Ts = (1, 4, 32 // G + 1) if fmt == "int8" else (1, 4)
+            # the last window has too many rows for folding its G heads to save a
+            # tile (B11-int8-causal): the shortest such window, as JAX decides it
+            t_unfold = next(t for t in range(2, 33) if not st.decode.fold_heads(G, t))
+            Ts = (1, 4, t_unfold) if fmt == "int8" else (1, 4)
             pos = L
             for T in Ts:
                 cache = st.kv_cache_append(cache, k[:, :, pos:pos + T], v[:, :, pos:pos + T])
@@ -1572,63 +1620,68 @@ def decode_live_tokens(torch, name, args, kw):
     return n * Hk
 
 
+def decode_entry(torch, name, args, kw, launches, label=None):
+    """One B11 or D1 launch ``(args, kw)`` of configuration ``name`` against
+    its plain version on KV head 0 (and its query heads) of every sequence
+    (fails the run if they disagree), with its device time at the launch's
+    full shape and its bytes bound over the live tokens.  Returns the JSON
+    entry (named ``label``, ``name`` by default)."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.ops import paged_decode as tpd
+    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
+    if name.startswith("B11"):
+        q, k, v, cfg, ks, vs, vm, kvt, offs = args
+        G = q.shape[1] // k.shape[1] if q.shape[1] != k.shape[1] else 1
+        sub = (q[:, :G], k[:, :1], v[:, :1], cfg, ks[:, :1],
+               None if vs is None else vs[:, :1], None if vm is None else vm[:, :1], kvt, offs)
+        kern, plain = tatt.decode_kernel, tatt.decode_plain
+        src_line = TPU_KERNELS["B"]
+        skw = {}
+    else:
+        q, k8, ksp, vp, vs, vm, tab, lens = args
+        G = q.shape[1] // k8.shape[1]
+        sub = (q[:, :G], k8[:, :1], ksp[:, :1], vp[:, :1], vs[:, :1], vm[:, :1], tab, lens)
+        kern, plain = tpd.paged_decode_kernel, tpd.paged_decode_plain
+        src_line = TPU_KERNELS["D1"]
+        skw = kw
+    a = kern(*sub, **skw)
+    b, plain_ms = timed_call(torch, lambda: plain(*sub, **skw))
+    d = calc_diff(a[0], b[0])
+    err = float((a[0].float() - b[0].float()).abs().max())
+    ok = d < KERNEL_BAR
+    if a[1] is not None:
+        live = (b[1] > -1e29)
+        dl = float((a[1][live] - b[1][live]).abs().max()) if bool(live.any()) else 0.0
+        ok = ok and dl < LSE_BAR and bool(torch.equal(live, a[1] > -1e29))
+    check(ok, f"{label or name} vs plain on KV head 0 of {tuple(q.shape)} q, "
+              f"{tuple(args[1].shape)} cache: calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
+    ms = decode_device_ms(torch, lambda: kern(*args, **skw))
+    check(ms > 0, f"{label or name}: the profiler saw its kernels run ({ms:.4f} ms per call)")
+    wrapper_ms = time_fn(lambda: kern(*args, **skw), warmup=3, reps=20) * 1e3
+    out = kern(*args, **skw)
+    tokens = decode_live_tokens(torch, name, args, kw)
+    vbytes = args[2].element_size() if name.startswith("B11") else args[3].element_size()
+    D = q.shape[-1]
+    moved = tokens * (D + D * vbytes + 4) + nbytes(q, *(x for x in out if x is not None))
+    bound = bytes_bound(moved)
+    shape = (f"q {tuple(q.shape)}, cache {tuple(args[1].shape)}, {tokens} live tokens x heads; "
+             f"plain on KV head 0")
+    print(f"     {label or name}: max_abs_err {err:.3e}, kernel {ms:.4f} ms (device time; the "
+          f"wrapper {wrapper_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) at {shape}", flush=True)
+    return {"name": label or name, "route": "cuda", "source": SRC_DECODE, "replaces": src_line,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "wrapper_ms": wrapper_ms, "shape": shape}
+
+
 def decode_kernel_checks(torch, seen, totals):
     """Every B11 and D1 configuration the phase-8 paths launched, against
     its plain version on KV head 0 (and its query heads) of every
     sequence, with its time at the path's full shape and its bytes bound
     over the live tokens."""
-    from sageattention_tpu_torch.ops import attention as tatt
-    from sageattention_tpu_torch.ops import paged_decode as tpd
-    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
-    entries = []
-    for name in sorted(n for n in seen if n.startswith(("B11", "D1"))):
-        args, kw = seen[name]
-        if name.startswith("B11"):
-            q, k, v, cfg, ks, vs, vm, kvt, offs = args
-            G = q.shape[1] // k.shape[1] if q.shape[1] != k.shape[1] else 1
-            sub = (q[:, :G], k[:, :1], v[:, :1], cfg, ks[:, :1],
-                   None if vs is None else vs[:, :1], None if vm is None else vm[:, :1], kvt, offs)
-            kern, plain = tatt.decode_kernel, tatt.decode_plain
-            src_line = TPU_KERNELS["B"]
-            skw = {}
-        else:
-            q, k8, ksp, vp, vs, vm, tab, lens = args
-            G = q.shape[1] // k8.shape[1]
-            sub = (q[:, :G], k8[:, :1], ksp[:, :1], vp[:, :1], vs[:, :1], vm[:, :1], tab, lens)
-            kern, plain = tpd.paged_decode_kernel, tpd.paged_decode_plain
-            src_line = TPU_KERNELS["D1"]
-            skw = kw
-        a = kern(*sub, **skw)
-        b, plain_ms = timed_call(torch, lambda: plain(*sub, **skw))
-        d = calc_diff(a[0], b[0])
-        err = float((a[0].float() - b[0].float()).abs().max())
-        ok = d < KERNEL_BAR
-        if a[1] is not None:
-            live = (b[1] > -1e29)
-            dl = float((a[1][live] - b[1][live]).abs().max()) if bool(live.any()) else 0.0
-            ok = ok and dl < LSE_BAR and bool(torch.equal(live, a[1] > -1e29))
-        check(ok, f"{name} vs plain on KV head 0 of {tuple(q.shape)} q, {tuple(args[1].shape)} "
-                  f"cache: calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
-        ms = decode_device_ms(torch, lambda: kern(*args, **skw))
-        check(ms > 0, f"{name}: the profiler saw its kernels run ({ms:.4f} ms per call)")
-        wrapper_ms = time_fn(lambda: kern(*args, **skw), warmup=3, reps=20) * 1e3
-        out = kern(*args, **skw)
-        tokens = decode_live_tokens(torch, name, args, kw)
-        vbytes = args[2].element_size() if name.startswith("B11") else args[3].element_size()
-        D = q.shape[-1]
-        moved = tokens * (D + D * vbytes + 4) + nbytes(q, *(x for x in out if x is not None))
-        bound = bytes_bound(moved)
-        shape = (f"q {tuple(q.shape)}, cache {tuple(args[1].shape)}, {tokens} live tokens x heads; "
-                 f"plain on KV head 0")
-        print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.4f} ms (device time; the wrapper "
-              f"{wrapper_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bound {bound[0]:.4f} ms "
-              f"({bound[1]}) at {shape}", flush=True)
-        entries.append({"name": name, "route": "cuda", "source": SRC_DECODE,
-                        "replaces": src_line, "launches": totals.get(name, 0),
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-                        "wrapper_ms": wrapper_ms, "shape": shape})
-    return entries
+    return [decode_entry(torch, name, *seen[name], totals.get(name, 0))
+            for name in sorted(n for n in seen if n.startswith(("B11", "D1")))]
 
 
 def run_serving(torch, st, totals):
@@ -1654,6 +1707,585 @@ def run_serving(torch, st, totals):
 def _sage_nhd():
     from sageattention_tpu_torch.models import sage_dot_product_attention
     return sage_dot_product_attention
+
+# ------------------------------------------------------- slice 5 paths ----
+
+# Gemma-7B (config.json of google/gemma-7b): 16 heads of head dim 256, MHA,
+# an 8,192-token context
+GEMMA_7B = dict(heads=16, kv_heads=16, head_dim=256, context=8192)
+GEMMA_PAGED_LENS = (8192, 4096, 2048, 1000)
+# Training.  Llama-3-8B cut to 2 of its 32 blocks, so that f32 weights,
+# gradients and both Adam moments fit (~1.5 B parameters, ~24 GB), B = 1,
+# S = 8,192, eight Adam steps; the CogVideoX1.5-width DiT of phase 3 (2 of 42
+# blocks) for three; Mistral-7B-v0.1's window (32/8 heads, hd 128, S =
+# 16,384, W = 4096); phase 7's left-padded Llama-3-8B batch; the folded
+# verify window of 9 rows at (B = 8, 32/8 heads, hd 128, 32 K).
+TRAIN = dict(llama=dict(LLAMA3_8B, depth=2), seq=8192, steps=8, dit_steps=3,
+             dit=dict(hidden=3072, heads=48, depth=2, patch=2, in_channels=16, text_dim=4096,
+                      text_len=226, frames=13, height=60, width=90, zero_init_gates=False),
+             mistral=(32, 8, 128, 16384, 4096), padded=(4, 32, 8, 4096, 128),
+             padded_lens=(4096, 3072, 1536, 512), fold=(8, 32, 8, 32768, 128, 9))
+# gradients through the quantized forward vs exact attention's: a model's
+# step-0 gradients vs the exact run's, an entry's vs the f32 exact gradient
+# (tests/test_backward_pallas.py:95-105, tests/test_sliding_window.py)
+GRAD_BAR = 6e-2
+# A model trained through SageAttention's quantized forward misses that bar:
+# its step-0 gradients differ from the exact run's by the int8 forward's
+# effect on (o, lse), the same with the bf16 and the int8 backward, while
+# the port's exact forward with the same bf16 backward stays well inside it
+# (PERF.md, PR 6).  At Llama-3-8B width such runs are held to a bar set
+# from sound H100 runs (worst 9.606e-2, the same with either backward) with
+# 30% room; the DiT's meet GRAD_BAR (worst 1.010e-2).
+SAGE_GRAD_BAR = {"llama": 1.25e-1, "dit": GRAD_BAR}
+# C1/C2 from the exact forward's (o, lse) vs the f32 exact gradient
+# (tests/test_backward_pallas.py): relative for bf16, cosine distance for int8
+BWD_BF16_REL = 3e-2
+BWD_INT8_COS = 1.5e-3
+FOLD_BAR = 1e-6        # the folded T = 9 window vs the unfolded call
+OLD_FOLD_MS = 4.418    # the unfolded T = 9 window's device time before the fold (PERF.md, PR 5)
+HD256_BAR = {"sageattn": 1e-3, "H100 mode": FP8_BAR, "flash": ORACLE_BAR}
+SRC_BWD = "sageattention_tpu_torch/csrc/backward.cu"
+
+
+def run_training(torch, st, totals):
+    """Phase 9, the paths of slice 5, outside inference mode: head dim 256,
+    the folded verify window, then training (each path counted on its own)
+    and the kernel checks of every C1/C2 configuration it launched."""
+    seen = {}
+    entries = hd256_phase(torch, st, totals)
+    entries += fold_phase(torch, st, totals)
+    torch.cuda.empty_cache()
+    llama_train_phase(torch, seen, totals)
+    torch.cuda.empty_cache()
+    dit_train_phase(torch, seen, totals)
+    torch.cuda.empty_cache()
+    grad_paths_phase(torch, st, seen, totals)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        return entries + backward_kernel_checks(torch, seen, totals)
+
+
+def _path_counts(before, totals):
+    return {k: totals.get(k, 0) - before.get(k, 0) for k in totals}
+
+
+def hd256_phase(torch, st, totals):
+    """9a: head dim 256 at Gemma-7B's attention widths, causal over its
+    8,192-token context: ``sageattn``, the H100 mode and flash against the
+    f32 oracle on sampled heads; a B = 1 decode over an 8 K dense cache
+    (B11) and a paged batch (D1); every launch against its plain version."""
+    from sageattention_tpu_torch.ops.reference import sdpa
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    H, Hk, D, S = (GEMMA_7B[k] for k in ("heads", "kv_heads", "head_dim", "context"))
+    q, k, v = realistic_qkv(torch, 1, H, Hk, S, D, SEED + 60)
+    calls = {"sageattn": lambda: st.sageattn(q, k, v, is_causal=True),
+             "H100 mode": lambda: st.sageattn(q, k, v, is_causal=True, pv_dtype="fp8",
+                                              k_scale_mode="fine"),
+             "flash": lambda: st.flash_attention(q, k, v, is_causal=True)}
+    seen, before = {}, dict(totals)
+    outs, _ = counted_path(torch, "Gemma-7B head dim 256 prefill", ("B1", "B5-fp8", "B4"), seen,
+                           totals, lambda: {n: f() for n, f in calls.items()})
+    counts = _path_counts(before, totals)
+    heads = [0, H - 1]
+    ref = sdpa(q[:, heads], k[:, heads], v[:, heads], is_causal=True)
+    for name, out in outs.items():
+        d = calc_diff(out[:, heads].float(), ref.float())
+        check(d < HD256_BAR[name], f"Gemma-7B hd 256 {name} vs the f32 oracle on 2 heads: "
+                                   f"calc_diff {d:.3e} < {HD256_BAR[name]}")
+    entries = []
+    for name in sorted(seen):
+        entries.append(attn_kernel_entry(torch, name, *seen[name], counts.get(name, 0),
+                                         label=f"{name} hd256"))
+    # decode: B = 1 over an 8 K dense cache, and a paged batch, same heads
+    g = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    qd = torch.randn(len(GEMMA_PAGED_LENS), H, 1, D, generator=g, device="cuda").bfloat16()
+    cache = st.kv_cache_init(k[:, :, :S - 1], v[:, :, :S - 1], S)
+    page = SERVE["page"]
+    lens = list(GEMMA_PAGED_LENS)
+    per = -(-max(lens) // page) + 1
+    table = st.build_table([[b * per + j for j in range(per)] for b in range(len(lens))], per)
+    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
+        x[:, :, :max(lens)], (0, 0, 0, (per - 1) * page - max(lens))).expand(len(lens), -1, -1, -1)
+    kp, vp = pad(k), pad(v)
+
+    def run():
+        c = st.kv_cache_append(cache, k[:, :, S - 1:], v[:, :, S - 1:])
+        dense = st.sageattn_decode(qd[:1], c)
+        pool = st.paged_prefill(kp, vp, lens, table, num_pages=len(lens) * per, page_size=page)
+        return dense, st.sageattn_decode_paged(qd, pool)
+
+    seen, before = {}, dict(totals)
+    (dense, paged), _ = counted_path(torch, "Gemma-7B head dim 256 decode", ("B11-int8", "D1-int8"),
+                                     seen, totals, run)
+    counts = _path_counts(before, totals)
+    for h in heads:
+        d = _rows_diff(dense[0, h], _window_oracle(torch, qd[0, h], k[0, h], v[0, h]))
+        check(d < DECODE_BAR, f"Gemma-7B hd 256 dense decode head {h} vs the f32 oracle: "
+                              f"{d:.3e} < {DECODE_BAR}")
+        for b, L in enumerate(lens):
+            d = _rows_diff(paged[b, h], _window_oracle(torch, qd[b, h], k[0, h, :L], v[0, h, :L]))
+            check(d < DECODE_BAR, f"Gemma-7B hd 256 paged decode, sequence {b} ({L} tokens), "
+                                  f"head {h} vs the f32 oracle: {d:.3e} < {DECODE_BAR}")
+    for name in sorted(seen):
+        entries.append(decode_entry(torch, name, *seen[name], counts.get(name, 0),
+                                    label=f"{name} hd256"))
+    return entries
+
+
+def fold_phase(torch, st, totals):
+    """9b: a T = 9 verify window at (B = 8, 32/8 heads, 32 K) takes the
+    folded path, as in JAX: against the unfolded call, with both device
+    times."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    B, H, Hk, L, D, T = TRAIN["fold"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda").bfloat16()  # noqa: E731
+    k, v = rn(B, Hk, L, D), rn(B, Hk, L, D)
+    k[..., 7] += 3.0
+    cache = st.kv_cache_init(k[:, :, :L - T], v[:, :, :L - T], L)
+    cache = st.kv_cache_append(cache, k[:, :, L - T:], v[:, :, L - T:])
+    q = rn(B, H, T, D)
+    seen, before = {}, dict(totals)
+    folded, _ = counted_path(torch, "folded T = 9 window", ("B11-int8-causal-mod",), seen, totals,
+                             lambda: st.sageattn_decode(q, cache))
+    counts = _path_counts(before, totals)
+    cfg = tatt.AttnConfig(causal=True, causal_dynamic=True, quantized=True, pv_dtype="int8",
+                          sm_scale=D ** -0.5, kv_len=cache.max_len, kv_len_dynamic=True,
+                          fuse_v_mean=True, emit_lse=False, fuse_q_quant=True)
+    offsets = torch.stack([cache.length - T, torch.zeros_like(cache.length)])
+
+    def unfolded():
+        return tatt.attention_call(q, cache.k8, cache.v, k_scale=cache.k_scale,
+                                   v_scale=cache.v_scale, v_mean=cache.v_mean,
+                                   kv_true_dyn=cache.length, offsets=offsets, cfg=cfg)[0]
+
+    d = _rows_diff(folded, unfolded())
+    check(d < FOLD_BAR, f"folded T = 9 window vs the unfolded call: calc_diff {d:.3e} < {FOLD_BAR}")
+    ms_fold = decode_device_ms(torch, lambda: st.sageattn_decode(q, cache))
+    ms_unfold = decode_device_ms(torch, unfolded)
+    print(f"     T = 9 window at ({B}, {H}/{Hk} heads, {L} tokens): folded {ms_fold:.4f} ms, "
+          f"unfolded {ms_unfold:.4f} ms of device time (unfolded before the fold: "
+          f"{OLD_FOLD_MS} ms)", flush=True)
+    name = "B11-int8-causal-mod"
+    return [decode_entry(torch, name, *seen[name], counts.get(name, 0),
+                         label=f"{name} T=9 folded")]
+
+
+def exact_nhd(q, k, v, bias=None, mask=None, *, scale=None, is_causal=False, **kw):
+    """The oracle attention of the training phases, NHD: one
+    ``F.scaled_dot_product_attention`` call on the GQA-repeated heads (used
+    here only, never by the port)."""
+    import torch
+    G = q.shape[2] // k.shape[2]
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    if G > 1:
+        kh, vh = kh.repeat_interleave(G, dim=1), vh.repeat_interleave(G, dim=1)
+    return torch.nn.functional.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=is_causal, scale=scale).transpose(1, 2)
+
+
+def _grad_rel(model, ref):
+    """Per parameter tensor, sorted worst first: the relative max error
+    ``max|g - r| / max|r|`` of the model's gradient against ``ref`` (name ->
+    gradient), its cosine distance, and the name."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    errs = []
+    for name, p in model.named_parameters():
+        r = ref[name].float()
+        e = float((p.grad.float() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+        errs.append((e, calc_diff(p.grad.float(), r), name))
+    return sorted(errs, reverse=True)
+
+
+def train_runs(torch, what, make_model, loss_fn, data, runs, seen, totals):
+    """Adam (lr 3e-4) over ``data`` for each run ``name -> (attn_fn, expected
+    launch keys, gradient bar)``, from the same initial weights, each
+    counted on its own: per-step ms (CUDA events) and loss, the step-0
+    gradients of the first (exact) run kept as the reference of the
+    others, each held to its bar."""
+    results, ref = {}, None
+    for name, (attn, expect, _) in runs.items():
+        model = make_model(attn)
+        opt = torch.optim.Adam(model.parameters(), lr=3e-4)
+
+        def run():
+            """The steps; returns the losses, the ms per step and, from step
+            0, the gradients (first run) or their worst error against them."""
+            losses, ms, g0 = [], [], None
+            for i, batch in enumerate(data):
+                s, o, e = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+                s.record()
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, batch)
+                loss.backward()
+                o.record()
+                opt.step()
+                e.record()
+                torch.cuda.synchronize()
+                ms.append((s.elapsed_time(e), o.elapsed_time(e)))
+                losses.append(loss.item())
+                if i == 0:
+                    finite = all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+                    nonzero = all(bool((p.grad != 0).any()) for p in model.parameters())
+                    check(finite and nonzero, f"{what}, {name}: step-0 gradients finite and "
+                                              "non-zero in every parameter tensor")
+                    g0 = ({n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                          if ref is None else _grad_rel(model, ref))
+            return losses, ms, g0
+
+        (losses, ms, g0), _ = counted_path(torch, f"{what}, {name}", expect, seen, totals, run)
+        if ref is None:
+            ref, g0 = g0, None
+        results[name] = (losses, ms, g0)
+        del model, opt
+        torch.cuda.empty_cache()
+    exact = results[next(iter(runs))][0]
+    for name, (losses, ms, worst) in results.items():
+        check(all(map(lambda x: x == x and abs(x) < float("inf"), losses)),
+              f"{what}, {name}: every loss finite")
+        later = sorted(ms[1:]) or ms
+        med, med_opt = later[len(later) // 2]
+        drift = max(abs(a - b) for a, b in zip(losses, exact))
+        print(f"     {what}, {name}: {med:.1f} ms per step, of which the optimizer step "
+              f"{med_opt:.1f} ms (the median of steps 1-{len(ms) - 1}; step 0 {ms[0][0]:.1f}), "
+              "loss " + " ".join(f"{x:.4f}" for x in losses)
+              + f", max |loss drift| vs exact {drift:.2e}", flush=True)
+        if worst is not None:
+            print(f"     {what}, {name}: step-0 gradients vs the exact run's, worst relative "
+                  "max error (cosine distance): " + ", ".join(
+                      f"{n} {e:.3e} ({c:.2e})" for e, c, n in worst[:4]), flush=True)
+            bar = runs[name][2]
+            check(worst[0][0] < bar, f"{what}, {name}: step-0 gradients vs the exact run's, "
+                                     f"worst relative error {worst[0][0]:.3e} ({worst[0][2]}) "
+                                     f"< {bar}")
+    del ref
+    return results
+
+
+def llama_train_phase(torch, seen, totals):
+    """9c: Llama-3-8B width (2 of 32 blocks, f32 weights and Adam), B = 1,
+    S = 8,192, eight Adam steps on the example's synthetic stream: exact
+    attention, the port's exact attention (its flash forward and the bf16
+    C1/C2), ``sage_dot_product_attention`` (causal: the bf16 C1/C2) and
+    its ``quant_backward=True`` (the int8 C1/C2)."""
+    from sageattention_tpu_torch.examples import train_finetune as tex
+    from sageattention_tpu_torch.models import (LlamaConfig, LlamaLM, flash_dot_product_attention,
+                                                sage_dot_product_attention)
+    cfg = LlamaConfig(**TRAIN["llama"])
+    S = TRAIN["seq"]
+    data = list(tex.batches(cfg.vocab, 1, S + 1, TRAIN["steps"], seed=SEED + 1, device="cuda"))
+    init = LlamaLM(cfg, device="cuda").init_weights(SEED).state_dict()
+    n = sum(x.numel() for x in init.values())
+    print(f"     Llama-3-8B width, 2 blocks: {n / 1e9:.3f} B parameters in f32, random "
+          f"(std 0.02, seed {SEED}); S = {S}", flush=True)
+
+    def make(attn):
+        model = LlamaLM(cfg, attn_fn=attn, device="cuda")
+        model.load_state_dict(init)
+        return model
+
+    bar = SAGE_GRAD_BAR["llama"]
+    runs = {"exact": (exact_nhd, (), None),
+            "port flash (bf16 backward)": (flash_dot_product_attention,
+                                           ("B4", "C1-bf16-causal", "C2-bf16-causal"), GRAD_BAR),
+            "sage (bf16 backward)": (sage_dot_product_attention,
+                                     ("C1-bf16-causal", "C2-bf16-causal"), bar),
+            "sage quant_backward=True": (functools.partial(sage_dot_product_attention,
+                                                           quant_backward=True),
+                                         ("C1-int8-causal", "C2-int8-causal"), bar)}
+    train_runs(torch, "Llama-3-8B 2-block fine-tune", make, tex.lm_loss, data, runs, seen, totals)
+    del init
+
+
+def dit_train_phase(torch, seen, totals):
+    """9d: the CogVideoX1.5-width DiT (2 of 42 blocks), ``diffusion_loss``
+    and Adam steps with exact attention, the port's exact attention (flash
+    and the bf16 C1/C2), and SageAttention with the default backward
+    (non-causal: int8) and with ``quant_backward=False``."""
+    from sageattention_tpu_torch.models import (DiTConfig, flash_dot_product_attention,
+                                                sage_dot_product_attention)
+    from sageattention_tpu_torch.models import dit as tdit
+    cfg = DiTConfig(**TRAIN["dit"])
+    g = torch.Generator(device="cuda").manual_seed(SEED + 64)
+    batch = tdit.example_inputs(cfg, 1, generator=g, device="cuda")
+    noise = torch.randn(batch[0].shape, generator=g, device="cuda")
+    init = tdit.make_dit(cfg, device="cuda").init_weights(SEED).state_dict()
+
+    def make(attn):
+        model = tdit.make_dit(cfg, attn_fn=attn, device="cuda")
+        model.load_state_dict(init)
+        return model
+
+    bar = SAGE_GRAD_BAR["dit"]
+    runs = {"exact": (exact_nhd, (), None),
+            "port flash (bf16 backward)": (flash_dot_product_attention,
+                                           ("B4", "C1-bf16", "C2-bf16"), GRAD_BAR),
+            "sage (int8 backward)": (sage_dot_product_attention, ("C1-int8", "C2-int8"), bar),
+            "sage quant_backward=False": (functools.partial(sage_dot_product_attention,
+                                                            quant_backward=False),
+                                          ("C1-bf16", "C2-bf16"), bar)}
+    train_runs(torch, "CogVideoX1.5-width DiT diffusion step", make,
+               lambda m, b: tdit.diffusion_loss(m, b, noise=noise),
+               [batch] * TRAIN["dit_steps"], runs, seen, totals)
+    del init
+
+
+def exact_attn_grads(torch, q, k, v, do, keep_fn, chunk=2048):
+    """f32 gradients (TF32 off) of exact attention for the q heads ``q``/``do
+    [n, S, D]`` over one KV head ``k``/``v [Sk, D]``: the textbook formulas
+    over row chunks; ``keep_fn(r0, r1) -> [rows, Sk]`` bool, and a row with
+    no kept key gives 0.  Returns ``(dq, dk, dv)`` and the forward's ``(o,
+    lse)`` (natural log; -inf on a row with no kept key)."""
+    from sageattention_tpu_torch.ops.reference import _no_tf32
+    q, k, v, do = (x.float() for x in (q, k, v, do))
+    sc = q.shape[-1] ** -0.5
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    o, lse = torch.zeros_like(q), torch.zeros(q.shape[:2], device=q.device)
+    with _no_tf32():
+        for h in range(q.shape[0]):
+            for r0 in range(0, q.shape[1], chunk):
+                r1 = min(q.shape[1], r0 + chunk)
+                s = (q[h, r0:r1] @ k.T * sc).masked_fill(~keep_fn(r0, r1), float("-inf"))
+                m = s.amax(-1, keepdim=True)
+                m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+                p = torch.exp(s - m)
+                lsum = p.sum(-1, keepdim=True)
+                lse[h, r0:r1] = (m + torch.log(lsum))[:, 0]
+                p = p / lsum.clamp_min(1e-30)
+                dob = do[h, r0:r1]
+                o[h, r0:r1] = p @ v
+                di = (dob * o[h, r0:r1]).sum(-1, keepdim=True)
+                dv += p.T @ dob
+                ds = p * (dob @ v.T - di)
+                dq[h, r0:r1] = ds @ k * sc
+                dk += ds.T @ q[h, r0:r1] * sc
+    return (dq, dk, dv), (o, lse)
+
+
+def grad_distance(torch, what, got, ref):
+    """Prints how far gradients through an entry (its quantized forward)
+    are from the f32 exact ones: relative max error and cosine distance."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    check(all(bool(torch.isfinite(a).all()) for a in got), f"{what}: finite gradients")
+    print(f"     {what} vs the f32 exact gradient: " + ", ".join(
+        f"d{n} relative {float((a.float() - r).abs().max() / r.abs().max()):.3e} "
+        f"(cosine distance {calc_diff(a.float(), r):.2e})" for a, r, n in zip(got, ref, "qkv")),
+        flush=True)
+
+
+def grad_check(torch, what, got, ref, quantized):
+    """C1/C2's gradients ``got`` from the exact forward against the exact
+    ``ref``: relative max error for the bf16 backward, cosine distance for
+    the int8 one."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    for a, r, n in zip(got, ref, "qkv"):
+        if quantized:
+            d = calc_diff(a.float(), r)
+            check(d < BWD_INT8_COS, f"{what} d{n} vs the f32 exact gradient: cosine distance "
+                                    f"{d:.3e} < {BWD_INT8_COS}")
+        else:
+            d = float((a.float() - r).abs().max() / r.abs().max().clamp_min(1e-30))
+            check(d < BWD_BF16_REL, f"{what} d{n} vs the f32 exact gradient: relative "
+                                    f"{d:.3e} < {BWD_BF16_REL}")
+
+
+def grad_paths_phase(torch, st, seen, totals):
+    """9e: window, sinks and mask gradients at published widths:
+    Mistral-7B-v0.1's window with 0 and 4 sinks, and phase 7's left-padded
+    Llama-3-8B batch with its bool mask; the distance of the q heads of KV
+    head 0 from the f32 exact gradient is printed (through the quantized
+    forward; 9f holds C1/C2 from the exact forward to the tests' bars)."""
+    H, Hk, D, S, W = TRAIN["mistral"]
+    G = H // Hk
+    q, k, v = realistic_qkv(torch, 1, H, Hk, S, D, SEED + 65)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 66),
+                     device="cuda").bfloat16()
+
+    def grads(**kw):
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = st.sageattn(qq, kk, vv, is_causal=True, **kw)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
+
+    for sinks in (0, 4):
+        got, _ = counted_path(torch, f"Mistral-7B window {W}, {sinks} sinks: gradient",
+                              ("C1-bf16-window", "C2-bf16-window"), seen, totals,
+                              lambda: grads(sliding_window=W, attention_sinks=sinks))
+        ref, _ = exact_attn_grads(torch, q[0, :G], k[0, 0], v[0, 0], do[0, :G],
+                                  band_keep(torch, W, sinks, S))
+        grad_distance(torch, f"Mistral-7B window {W}, {sinks} sinks, sageattn, q heads "
+                             f"0-{G - 1}", (got[0][0, :G], got[1][0, 0], got[2][0, 0]), ref)
+        del got
+    del q, k, v, do
+    B, H, Hk, S, D = TRAIN["padded"]
+    G = H // Hk
+    lens = torch.tensor(TRAIN["padded_lens"], device="cuda")
+    q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 24)
+    do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(SEED + 67),
+                     device="cuda").bfloat16()
+    pad = S - lens
+    keep = (torch.arange(S, device="cuda")[None, None, None, :] >= pad[:, None, None, None])
+    keep = keep.expand(B, 1, S, S).contiguous()
+    got, _ = counted_path(torch, "Llama-3-8B left-padded batch: gradient",
+                          ("C1-bf16-causal-bool", "C2-bf16-causal-bool"), seen, totals,
+                          lambda: grads(attn_mask=keep))
+    for b in range(B):
+        causal = band_keep(torch, S, 0, S)
+        ref, _ = exact_attn_grads(torch, q[b, :G], k[b, 0], v[b, 0], do[b, :G],
+                                  lambda r0, r1, b=b: causal(r0, r1) & keep[b, 0, r0:r1])
+        grad_distance(torch, f"left-padded row {b} (prompt {int(lens[b])}), sageattn, "
+                             f"q heads 0-{G - 1}", (got[0][b, :G], got[1][b, 0], got[2][b, 0]),
+                      ref)
+
+
+def bwd_pairs(torch, B, Hq, Sq, Sk, kw):
+    """(query, key) pairs the backward's masks keep, over every head."""
+    mask, causal = kw.get("attn_mask"), kw["is_causal"]
+    W, sinks = kw.get("window", 0), kw.get("sinks", 0)
+    if mask is None:
+        if not causal:
+            return B * Hq * Sq * Sk
+        r = torch.arange(Sq, device="cuda", dtype=torch.float64)
+        if not W:
+            return int(B * Hq * float((r + 1).sum()))
+        lo = torch.clamp_min(r - W + 1, 0)
+        return int(B * Hq * float((r + 1 - lo + torch.minimum(lo, torch.tensor(float(sinks),
+                   device="cuda", dtype=torch.float64))).sum()))
+    n = 0
+    for r0 in range(0, Sq, 1024):
+        r1 = min(Sq, r0 + 1024)
+        m = mask[:, :, r0:r1]
+        if causal:
+            m = m & band_keep(torch, Sq, 0, Sk)(r0, r1)
+        n += int(m.sum()) * (Hq // mask.shape[1])
+    return n
+
+
+def bwd_bound(kernel, quantized, pairs, D, moved_bytes):
+    """Least time of C1 (four products: S, dP, dV, dK) or C2 (three: S, dP,
+    dQ), each 2 x pairs x D operations, the score product at int8 or bf16
+    rate and the rest at bf16, against the exp2 of P on the SFUs and the
+    bytes each input is read and each output written once."""
+    n_bf16 = 3 if kernel == "C1" else 2
+    tc = 2 * pairs * D * (1 / TC_OPS_S["int8" if quantized else "bf16"] + n_bf16 / TC_OPS_S["bf16"])
+    ops = max(tc, pairs / EX2_S)
+    by = moved_bytes / HBM_BYTES_S
+    return max(ops, by) * 1e3, "operations" if ops >= by else "bytes"
+
+
+def library_bwd_ms(torch, q, k, v, do, kw):
+    """``torch.autograd.grad`` through one ``F.scaled_dot_product_attention``
+    call of the same shape (flash backend; a window or mask goes in as a
+    bool ``attn_mask``): the one PyTorch call that computes what a bf16
+    C1 + C2 computes (timed here, never called by the port)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from sageattention_tpu_torch.utils.testing import time_fn
+    G = q.shape[1] // k.shape[1]
+    qq, kk, vv = (x.detach().to(torch.bfloat16).requires_grad_() for x in (q, k, v))
+    S, Sk = q.shape[2], k.shape[2]
+    mask = kw.get("attn_mask")
+    if kw.get("window"):
+        mask = band_keep(torch, kw["window"], kw.get("sinks", 0), Sk)(0, S)
+    elif mask is not None and kw["is_causal"]:
+        mask = mask & band_keep(torch, S, 0, Sk)(0, S)
+    with torch.enable_grad():   # the kernel checks run under no_grad
+        kr, vr = (x.repeat_interleave(G, dim=1) for x in (kk, vv)) if G > 1 else (kk, vv)
+        if mask is None:
+            with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    qq, kr, vr, is_causal=kw["is_causal"], scale=kw["sm_scale"])
+        else:
+            out = torch.nn.functional.scaled_dot_product_attention(qq, kr, vr, attn_mask=mask,
+                                                                   scale=kw["sm_scale"])
+        dob = do.to(torch.bfloat16)
+        return time_fn(lambda: torch.autograd.grad(out, (qq, kk, vv), dob, retain_graph=True),
+                       warmup=2, reps=5) * 1e3
+
+
+def backward_kernel_checks(torch, seen, totals):
+    """9f: every C1/C2 configuration the training paths launched, replayed
+    from the inputs of its first ``attention_backward`` call: the kernel
+    against ``attention_backward_plain`` on 1-2 sampled q heads at full
+    length (calc_diff <= KERNEL_BAR per gradient), the gradients of KV
+    head 0 against the f32 exact ones, the kernel's time at the path's full
+    shape, its bound and, for bf16, the library's backward."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
+    entries, failures, exact_done = [], [], set()
+    for name in sorted(n for n in seen if n.startswith(("C1-", "C2-"))):
+        (q, k, v, o, lse, do), kw = seen[name]
+        kernel, quant = name[:2], kw.get("quantized", False)
+        B, Hq, Sq, D = q.shape
+        Hk, Sk = k.shape[1], k.shape[2]
+        G = Hq // Hk
+        mask = kw.get("attn_mask")
+        opts = dict(causal=kw["is_causal"], window=kw.get("window", 0), sinks=kw.get("sinks", 0))
+
+        def sub(n):   # q heads [0, n) and KV head 0
+            m = None if mask is None else (mask if mask.shape[1] == 1 else mask[:, :n])
+            return (q[:, :n], k[:, :1], v[:, :1], o[:, :n], lse[:, :n], do[:, :n]), m
+
+        head_args, m = sub(min(G, 2))
+        pa = tbwd.prepare(*head_args, sm_scale=kw["sm_scale"], quantized=quant, attn_mask=m)
+        pa.update(opts, out_dtype=torch.float32)
+        got = tbwd.attention_backward_kernel(**pa, kernels=(kernel,))
+        plain, plain_ms = timed_call(torch, lambda: tbwd.attention_backward_plain(**pa))
+        idx = (1, 2) if kernel == "C1" else (0,)
+        diffs = [calc_diff(got[i], plain[i]) for i in idx]
+        err = max(float((got[i] - plain[i]).abs().max()) for i in idx)
+        shape = (f"q {tuple(q.shape)}, kv {tuple(k.shape)}, causal={opts['causal']}, "
+                 f"window={opts['window']}, sinks={opts['sinks']}, mask={mask is not None}")
+        what = (f"{name} vs plain on {min(G, 2)} q heads of {shape}: calc_diff "
+                + "/".join(f"{d:.3e}" for d in diffs) + f" <= {KERNEL_BAR}, max_abs {err:.3e}")
+        ok = all(d <= KERNEL_BAR for d in diffs)
+        print(("ok   " if ok else "FAIL ") + what, flush=True)
+        if not ok:
+            failures.append(what)
+            continue
+        cfg = name[3:]
+        if cfg not in exact_done:   # once per configuration: KV head 0 vs exact
+            exact_done.add(cfg)
+            for b in range(B):
+                keep = band_keep(torch, opts["window"] or Sk, opts["sinks"], Sk) \
+                    if opts["causal"] else (lambda r0, r1: torch.ones(r1 - r0, Sk, dtype=torch.bool,
+                                                                      device="cuda"))
+                mb = None if mask is None else mask[b:b + 1, :1]
+                if mb is not None:
+                    keep = (lambda r0, r1, kf=keep, mb=mb: kf(r0, r1) & mb[0, 0, r0:r1])
+                ref, (oe, lse_e) = exact_attn_grads(torch, q[b, :G], k[b, 0], v[b, 0], do[b, :G],
+                                                    keep)
+                got_b = tbwd.attention_backward(
+                    q[b:b + 1, :G], k[b:b + 1, :1], v[b:b + 1, :1], oe[None], lse_e[None],
+                    do[b:b + 1, :G], sm_scale=kw["sm_scale"], is_causal=opts["causal"],
+                    attn_mask=mb, quantized=quant, window=opts["window"], sinks=opts["sinks"])
+                grad_check(torch, f"{cfg} (C1 + C2) from the exact forward, sequence {b}, "
+                                  f"q heads 0-{G - 1}",
+                           (got_b[0][0], got_b[1][0, 0], got_b[2][0, 0]), ref, quant)
+        pf = tbwd.prepare(q, k, v, o, lse, do, sm_scale=kw["sm_scale"], quantized=quant,
+                          attn_mask=mask)
+        pf.update(opts, out_dtype=torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32)
+        ms = time_fn(lambda: tbwd.attention_backward_kernel(**pf, kernels=(kernel,)), warmup=2,
+                     reps=5) * 1e3
+        out = tbwd.attention_backward_kernel(**pf, kernels=(kernel,))
+        reads = [pf[n] for n in ("q", "k", "v", "do", "lse2", "di", "qs", "ks", "mask") if n in pf]
+        moved = nbytes(*reads, *(x for x in out if x is not None))
+        pairs = bwd_pairs(torch, B, Hq, Sq, Sk, dict(kw, **opts))
+        bound = bwd_bound(kernel, quant, pairs, D, moved)
+        lib = None if quant else library_bwd_ms(torch, q, k, v, do, dict(kw, **opts))
+        libs = "" if lib is None else f", library (C1 + C2) {lib:.3f} ms"
+        print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {bound[0]:.3f} ms ({bound[1]}){libs} at {shape}, {pairs} kept pairs; "
+              f"plain on {min(G, 2)} q heads", flush=True)
+        entries.append({"name": name, "route": "cuda", "source": SRC_BWD,
+                        "replaces": TPU_KERNELS[kernel], "launches": totals.get(name, 0),
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
+                        "shape": shape})
+        del pf, out
+    check(not failures, f"{len(failures)} C1/C2 configurations disagree with their plain "
+                        "versions: " + "; ".join(failures))
+    check(bool(entries), "the training paths launched C1/C2")
+    return entries
+
 
 # ---------------------------------------------------------------- configs ----
 

@@ -39,8 +39,19 @@ kernel (B7, B9).  A float bias takes the online softmax under ``"auto"``:
 the static cap no longer bounds the biased logits.
 
 Options outside the slices ported so far raise ``NotImplementedError``
-naming the slice that brings them.  There is no backward yet: inputs that
-require grad raise.
+naming the slice that brings them.
+
+Gradients (``core.py:706-865`` of the JAX package): every public
+``sageattn*`` entry is differentiable through a ``torch.autograd.Function``
+whose forward runs the pipeline with ``return_lse=True`` and saves ``(q, k,
+v, o, lse)``, and whose backward is the straight-through flash backward of
+exact attention (kernels C1/C2, ``ops.backward``): the int8 S-recompute
+for non-causal calls and exact bf16 for causal ones by default
+(:func:`_resolve_quant_bwd`; ``quant_backward=True/False`` overrides).  A
+bool ``attn_mask`` threads into the backward (no gradient for the mask); a
+float bias or ``return_lse=True`` runs forward and raises on backward, as
+in JAX.  ``_sage_attention`` and ``flash_attention`` themselves raise on
+inputs that require grad: they have no backward of their own.
 """
 
 from __future__ import annotations
@@ -117,11 +128,15 @@ def _finish_lse(lse_b2, lse_correction):
     return lse
 
 
+def _wants_grad(*xs) -> bool:
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def _no_grad_inputs(*xs):
-    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+    if _wants_grad(*xs):
         raise NotImplementedError(
-            "the port has no attention backward yet (ROADMAP queue 2 C1/C2); "
-            "run inference under torch.no_grad() or detach the inputs")
+            "this function has no backward: take gradients through sageattn or its "
+            "explicit entries, or run it under torch.no_grad()")
 
 
 def _to_hnd(layout, *xs):
@@ -394,9 +409,88 @@ def _sage_attention(
     return out, _finish_lse(lse_b2, corr)
 
 
-def _no_backward_kwargs(kwargs, name):
-    if kwargs.pop("quant_backward", None) is not None:
-        raise NotImplementedError("quant_backward arrives with the backward (C1/C2)")
+def _resolve_quant_bwd(quant_bwd, is_causal: bool) -> bool:
+    """The backward's default (JAX ``core.py:706``): the int8 S-recompute
+    for non-causal calls, exact bf16 for causal ones; an explicit
+    True/False overrides."""
+    if quant_bwd is None:
+        return not is_causal
+    if not isinstance(quant_bwd, bool):
+        raise ValueError(f"quant_backward must be True, False or None, got {quant_bwd!r}")
+    return quant_bwd
+
+
+class _SageAttnFn(torch.autograd.Function):
+    """The differentiable pipeline (JAX ``_diff_sage_factory`` and its
+    masked variant): forward ``_sage_attention(..., return_lse=True)``,
+    saving ``(q, k, v, o, lse)`` and a bool mask; backward C1/C2 from them,
+    in HND."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, opts, quant_bwd):
+        out, lse = _sage_attention(q, k, v, return_lse=True, attn_mask=mask, **opts)
+        ctx.save_for_backward(q, k, v, out, lse, mask)
+        ctx.opts, ctx.quant_bwd = opts, quant_bwd
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        from .ops import backward as backward_ops
+        q, k, v, o, lse, mask = ctx.saved_tensors
+        opts = ctx.opts
+        layout = get_layout(opts["tensor_layout"])
+        q, k, v, o, do = _to_hnd(layout, q, k, v, o, do)
+        sm_scale = opts["sm_scale"]
+        if sm_scale is None:
+            sm_scale = 1.0 / (q.shape[-1] ** 0.5)
+        dq, dk, dv = backward_ops.attention_backward(
+            q, k, v, o, lse, do, sm_scale=sm_scale, is_causal=opts["is_causal"],
+            attn_mask=mask, quantized=ctx.quant_bwd, window=opts.get("sliding_window", 0),
+            sinks=opts.get("attention_sinks", 0))
+        dq, dk, dv = _to_hnd(layout, dq, dk, dv)   # back to the caller's layout
+        return dq, dk, dv, None, None, None
+
+
+class _NoGrad(torch.autograd.Function):
+    """A forward that works and a backward that raises (JAX ``_nondiff``):
+    no silent zero gradient through the quantization."""
+
+    @staticmethod
+    def forward(ctx, fn, why, q, k, v):
+        ctx.why = why
+        out = fn(q, k, v)
+        if isinstance(out, tuple):
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(ctx.why)
+
+
+_LSE_WHY = ("sageattn(return_lse=True) is not differentiable; take gradients "
+            "through the plain output (return_lse=False) instead")
+_BIAS_WHY = ("sageattn with a float additive-bias mask is not differentiable "
+             "(the bias gradient is O(S^2) to materialize); use a bool mask "
+             "or the exact attention for training")
+
+
+def _route(q, k, v, *, return_lse=False, attn_mask=None, quant_backward=None, **opts):
+    """Public entry routing (JAX ``_route``): inputs that need no gradient
+    run the pipeline; otherwise the plain and bool-mask calls go through
+    :class:`_SageAttnFn`, and a float bias or ``return_lse`` through a
+    forward whose backward raises."""
+    quant_bwd = _resolve_quant_bwd(quant_backward, opts["is_causal"])
+    if not _wants_grad(q, k, v):
+        return _sage_attention(q, k, v, return_lse=return_lse, attn_mask=attn_mask, **opts)
+    if return_lse or (attn_mask is not None and attn_mask.dtype != torch.bool):
+        fn = functools.partial(_sage_attention, return_lse=return_lse, attn_mask=attn_mask,
+                               **opts)
+        return _NoGrad.apply(fn, _LSE_WHY if return_lse else _BIAS_WHY, q, k, v)
+    return _SageAttnFn.apply(q, k, v, attn_mask, opts, quant_bwd)
+
+
+def _no_extra_kwargs(kwargs, name):
     if kwargs:
         raise TypeError(f"{name} got unexpected arguments {sorted(kwargs)}")
 
@@ -414,7 +508,8 @@ def sageattn(
     """Auto-dispatching SageAttention: int8 QK^T and int8 PV with
     per-channel V scales and mean smoothing on the flagship path; any mode
     argument of ``_sage_attention`` (``pv_dtype``, ``k_scale_mode``, ...)
-    may be given.
+    may be given, and ``quant_backward`` (the backward's int8 S-recompute;
+    default: non-causal calls only).
 
     Layouts: "HND" [B,H,S,D] or "NHD" [B,S,H,D]; GQA via Hq % Hk == 0;
     ``return_lse`` also returns the natural-log row logsumexp [B,Hq,Sq].
@@ -432,9 +527,11 @@ def sageattn(
         sliding_window=kwargs.pop("sliding_window", 0),
         attention_sinks=kwargs.pop("attention_sinks", 0),
     )
-    _no_backward_kwargs(kwargs, "sageattn")
-    return _sage_attention(q, k, v, tensor_layout=tensor_layout, is_causal=is_causal,
-                           sm_scale=sm_scale, return_lse=return_lse, **opts)
+    quant_backward = kwargs.pop("quant_backward", None)
+    _no_extra_kwargs(kwargs, "sageattn")
+    return _route(q, k, v, tensor_layout=tensor_layout, is_causal=is_causal,
+                  sm_scale=sm_scale, return_lse=return_lse, quant_backward=quant_backward,
+                  **opts)
 
 
 def sageattn_qk_int8_pv_bf16(
@@ -452,12 +549,13 @@ def sageattn_qk_int8_pv_bf16(
     (``sageattn_qk_int8_pv_fp16_cuda`` with ``pv_accum_dtype="fp32"``):
     fine K scales, V unquantized and unsmoothed, static softmax with its
     online fallback."""
-    _no_backward_kwargs(kwargs, "sageattn_qk_int8_pv_bf16")
-    return _sage_attention(
+    quant_backward = kwargs.pop("quant_backward", None)
+    _no_extra_kwargs(kwargs, "sageattn_qk_int8_pv_bf16")
+    return _route(
         q, k, v, tensor_layout=tensor_layout, is_causal=is_causal,
         sm_scale=sm_scale, smooth_k=smooth_k, smooth_v=False,
         qk_quant_gran=qk_quant_gran, pv_dtype="bf16", return_lse=return_lse,
-        attn_mask=attn_mask)
+        attn_mask=attn_mask, quant_backward=quant_backward)
 
 
 def sageattn_qk_int8_pv_int8(
@@ -475,12 +573,13 @@ def sageattn_qk_int8_pv_int8(
     """INT8 QK^T + INT8 PV (per-channel V scales, V-mean smoothing) with
     reference-granularity ("fine") K scales; short sequences run the
     bf16-compute kernel, which applies the K scale per head."""
-    _no_backward_kwargs(kwargs, "sageattn_qk_int8_pv_int8")
-    return _sage_attention(
+    quant_backward = kwargs.pop("quant_backward", None)
+    _no_extra_kwargs(kwargs, "sageattn_qk_int8_pv_int8")
+    return _route(
         q, k, v, tensor_layout=tensor_layout, is_causal=is_causal,
         sm_scale=sm_scale, smooth_k=smooth_k, smooth_v=smooth_v,
         qk_quant_gran=qk_quant_gran, pv_dtype="int8", return_lse=return_lse,
-        attn_mask=attn_mask)
+        attn_mask=attn_mask, quant_backward=quant_backward)
 
 
 def sageattn_qk_int8_pv_fp8(
@@ -499,12 +598,13 @@ def sageattn_qk_int8_pv_fp8(
     SageAttention2 mode that the reference runs on the H100: fine K scales,
     e4m3 P under the online softmax, per-channel e4m3 V with its code-mean
     fold."""
-    _no_backward_kwargs(kwargs, "sageattn_qk_int8_pv_fp8")
-    return _sage_attention(
+    quant_backward = kwargs.pop("quant_backward", None)
+    _no_extra_kwargs(kwargs, "sageattn_qk_int8_pv_fp8")
+    return _route(
         q, k, v, tensor_layout=tensor_layout, is_causal=is_causal,
         sm_scale=sm_scale, smooth_k=smooth_k, smooth_v=smooth_v,
         qk_quant_gran=qk_quant_gran, pv_dtype="fp8", return_lse=return_lse,
-        attn_mask=attn_mask)
+        attn_mask=attn_mask, quant_backward=quant_backward)
 
 
 def _alias(fn, note):

@@ -19,7 +19,7 @@
 //             the codes / 127; e4m3 P = e4m3(exp2(s - m + log2 448)) with
 //             e4m3 V, l summing the rounded P (online softmax only).
 // Shared rules: causal with above-diagonal tiles skipped, the kv tail
-// masked beyond kv_len, GQA through h / (Hq/Hk), head dim 64 or 128.
+// masked beyond kv_len, GQA through h / (Hq/Hk), head dim 64, 128 or 256.
 //
 // The EXT instantiations (built by attention_ext.cu / attention_q8_ext.cu)
 // add the options of the Pallas kernel's B7-B9 configurations, every one a
@@ -57,7 +57,11 @@
 // two differ in f32 rounding only).  The staging and PV loops keep one
 // order for every configuration, with K and V loads in flight together.
 // A native e4m3 wgmma PV (V transposed in memory, two-level accumulation)
-// is later work.
+// is later work.  At D = 256 (head dims 129-256, padded) the tiles outgrow
+// the 48 KB of static shared memory and the 64 x 256 f32 accumulator takes
+// 128 registers a thread: that instantiation keeps its tiles in dynamic
+// shared memory, with the Q tile in a region of its own whose fragments are
+// read at each k-step instead of being held in registers.
 #pragma once
 
 #include <type_traits>
@@ -137,7 +141,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// E consecutive elements of a Q row as f32 (E = D/32: 2 or 4).
+// E consecutive elements of a Q row as f32 (E = D/32: 2, 4 or 8).
 template <int E>
 __device__ __forceinline__ void load_row_part(const __nv_bfloat16* p, float* x) {
 #pragma unroll
@@ -162,8 +166,11 @@ __device__ __forceinline__ void load_row_part(const int8_t* p, float* x) {
     const char2 c = *reinterpret_cast<const char2*>(p);
     x[0] = c.x; x[1] = c.y;
   } else {
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    x[0] = c.x; x[1] = c.y; x[2] = c.z; x[3] = c.w;
+#pragma unroll
+    for (int i = 0; i < E; i += 4) {
+      const char4 c = *reinterpret_cast<const char4*>(p + i);
+      x[i] = c.x; x[i + 1] = c.y; x[i + 2] = c.z; x[i + 3] = c.w;
+    }
   }
 }
 
@@ -191,9 +198,18 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
   constexpr int K_ELEM = (QM == Q_FLASH) ? 2 : 1;                        // bytes per K elem
   constexpr int V_ELEM = (QM == Q_FLASH || PV == PV_BF16P_BF16V) ? 2 : 1;  // bytes per V elem
 
-  // sQK holds the Q tile until its fragments are in registers, then K tiles
-  __shared__ __align__(16) uint8_t sQK[BQ * ROW_BYTES];
-  __shared__ __align__(16) __nv_bfloat16 sV[BK * BF_STRIDE];
+  // sQK holds the Q tile until its fragments are in registers, then K tiles;
+  // at D = 256 (QSMEM) the tiles live in dynamic shared memory and the Q
+  // tile keeps a region of its own, sQ, from which each k-step reads its
+  // fragments
+  constexpr bool QSMEM = D > 128;
+  __shared__ __align__(16) uint8_t sQK_st[QSMEM ? 16 : BQ * ROW_BYTES];
+  __shared__ __align__(16) __nv_bfloat16 sV_st[QSMEM ? 8 : BK * BF_STRIDE];
+  extern __shared__ __align__(16) uint8_t dyn_smem[];
+  uint8_t* const sQK = QSMEM ? dyn_smem + BQ * ROW_BYTES : sQK_st;
+  uint8_t* const sQ = QSMEM ? dyn_smem : sQK;
+  __nv_bfloat16* const sV =
+      QSMEM ? reinterpret_cast<__nv_bfloat16*>(dyn_smem + 2 * BQ * ROW_BYTES) : sV_st;
   __shared__ float s_qscale[BQ];
   __shared__ float s_cap[BQ];
   __shared__ float s_ks[BK];
@@ -231,7 +247,7 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
         for (int i = 0; i < E; ++i) x[i] = 0.f;
       }
       if (QM == Q_FLASH) {
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + lane * E;
+        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQ + r * ROW_BYTES) + lane * E;
 #pragma unroll
         for (int i = 0; i < E; i += 2) store2(dst + i, x[i], x[i + 1]);
       } else if (QPRE) {
@@ -241,11 +257,11 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
 #pragma unroll
         for (int i = 0; i < E; ++i) n2 += x[i] * x[i];  // exact integer sum
         if (KI8) {
-          int8_t* dst = reinterpret_cast<int8_t*>(sQK + r * ROW_BYTES) + lane * E;
+          int8_t* dst = reinterpret_cast<int8_t*>(sQ + r * ROW_BYTES) + lane * E;
 #pragma unroll
           for (int i = 0; i < E; ++i) dst[i] = (int8_t)x[i];
         } else {  // bf16 compute: Q dequantized once, (q8 * qs) rounded to bf16
-          __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + lane * E;
+          __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQ + r * ROW_BYTES) + lane * E;
 #pragma unroll
           for (int i = 0; i < E; i += 2)
             store2(dst + i, __fmul_rn(x[i], qs), __fmul_rn(x[i + 1], qs));
@@ -267,7 +283,7 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
         const float qs = a > 0.f ? __fmul_rn(a, (float)(1.0 / 127.0)) : 1.f;
         const float inv = __fdiv_rn(1.f, qs);
         float n2 = 0.f;
-        int8_t* dst = reinterpret_cast<int8_t*>(sQK + r * ROW_BYTES) + lane * E;
+        int8_t* dst = reinterpret_cast<int8_t*>(sQ + r * ROW_BYTES) + lane * E;
 #pragma unroll
         for (int i = 0; i < E; ++i) {
           const float c = sage::code_i8(__fmul_rn(qf[i], inv));
@@ -289,7 +305,7 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
           qe[i] = __fmul_rn(__fmul_rn(x[i], p.fold), kshr);
           n2 += qe[i] * qe[i];
         }
-        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQK + r * ROW_BYTES) + lane * E;
+        __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(sQ + r * ROW_BYTES) + lane * E;
 #pragma unroll
         for (int i = 0; i < E; i += 2) store2(dst + i, qe[i], qe[i + 1]);
         n2 = sage::warp_sum(n2);
@@ -302,14 +318,18 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
 
   // this thread's two rows inside the warp's 16-row slab
   const int rA = warp * 16 + g, rB = rA + 8;
-  uint32_t qa[KSTEPS][4];
+  // the Q fragments of k-step ks (the same layout for s8 and bf16)
+  auto q_frag = [&](uint32_t* a, int ks) {
+    const uint8_t* base = KI8 ? sQ + ks * 32 + 4 * t : sQ + (ks * 16 + 2 * t) * 2;
+    a[0] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES);
+    a[1] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES);
+    a[2] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES + 16);
+    a[3] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES + 16);
+  };
+  uint32_t qa[QSMEM ? 1 : KSTEPS][4];
+  if constexpr (!QSMEM) {
 #pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const uint8_t* base = KI8 ? sQK + ks * 32 + 4 * t : sQK + (ks * 16 + 2 * t) * 2;
-    qa[ks][0] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES);
-    qa[ks][1] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES);
-    qa[ks][2] = *reinterpret_cast<const uint32_t*>(base + rA * ROW_BYTES + 16);
-    qa[ks][3] = *reinterpret_cast<const uint32_t*>(base + rB * ROW_BYTES + 16);
+    for (int ks = 0; ks < KSTEPS; ++ks) q_frag(qa[ks], ks);
   }
   const float qseA = KI8 ? s_qscale[rA] : 1.f, qseB = KI8 ? s_qscale[rB] : 1.f;
   float mA = STATIC ? s_cap[rA] : M_CLAMP, mB = STATIC ? s_cap[rB] : M_CLAMP;
@@ -414,10 +434,12 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
       for (int n = 0; n < 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
+        if constexpr (QSMEM) q_frag(qa[0], ks);
+        const uint32_t* a = qa[QSMEM ? 0 : ks];
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           const uint8_t* kr = sQK + (n * 8 + g) * ROW_BYTES + ks * 32 + 4 * t;
-          mma_s8(si[n], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+          mma_s8(si[n], a, *reinterpret_cast<const uint32_t*>(kr),
                  *reinterpret_cast<const uint32_t*>(kr + 16));
         }
       }
@@ -439,10 +461,12 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
       for (int n = 0; n < 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KSTEPS; ++ks) {
+        if constexpr (QSMEM) q_frag(qa[0], ks);
+        const uint32_t* a = qa[QSMEM ? 0 : ks];
 #pragma unroll
         for (int n = 0; n < 8; ++n) {
           const uint8_t* kr = sQK + (n * 8 + g) * ROW_BYTES + (ks * 16 + 2 * t) * 2;
-          mma_bf16(s[n], qa[ks], *reinterpret_cast<const uint32_t*>(kr),
+          mma_bf16(s[n], a, *reinterpret_cast<const uint32_t*>(kr),
                    *reinterpret_cast<const uint32_t*>(kr + 16));
         }
       }
@@ -658,8 +682,10 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
 // 4 at D = 64): its extra state would otherwise push some instantiations
 // past the register count that allows it.  The plain entry keeps the bare
 // bound: any minimum-blocks hint changes how ptxas allocates its registers.
+// D = 256 takes no minimum: its accumulator alone is 128 registers.
 template <int QM, bool STATIC, int PV, int D, typename T, typename O>
-__global__ void __launch_bounds__(kThreads, (D == 64 ? 4 : 3)) attn_fwd_ext_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, (D == 64 ? 4 : D == 128 ? 3 : 1))
+    attn_fwd_ext_kernel(Params p) {
   attn_fwd_body<QM, STATIC, PV, D, true, T, O>(p);
 }
 
@@ -673,10 +699,20 @@ struct Launcher {
 
   template <int QM, bool STATIC, int PV, int D>
   void launch() const {
-    if constexpr (EXT)
+    if constexpr (D > 128) {
+      // dynamic shared memory: the Q, K and V tiles (above the 48 KB default,
+      // so the kernel opts in first)
+      constexpr int row = QM == Q_INT8 ? D + 16 : 2 * (D + 8);
+      constexpr int smem = 2 * BQ * row + BK * 2 * (D + 8);
+      auto kern = EXT ? attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O>
+                      : attn_fwd_kernel<QM, STATIC, PV, D, T, O>;
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kern<<<grid, kThreads, smem, st>>>(p);
+    } else if constexpr (EXT) {
       attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
-    else
+    } else {
       attn_fwd_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
+    }
   }
 
   template <int QM, bool STATIC, int PV>
@@ -685,6 +721,8 @@ struct Launcher {
       launch<QM, STATIC, PV, 64>();
     else if (D == 128)
       launch<QM, STATIC, PV, 128>();
+    else if (D == 256)
+      launch<QM, STATIC, PV, 256>();
     else
       return -1;
     return (int)cudaGetLastError();

@@ -10,7 +10,9 @@
 //        rint(exp2(s - m + log2 127)) for an int8 V, e4m3 P =
 //        e4m3(exp2(s - m + log2 448)) for an e4m3 V, bf16 P for a bf16 V),
 //        the true length and the causal offsets of a verify window read from
-//        device memory, folded GQA rows whose position is q_start + r % T.
+//        device memory, folded GQA rows whose position is q_start +
+//        (row_base + r) % T (row_base: the launch's first row among the
+//        folded rows, when they take more than one 32-row launch).
 //   D1   `_paged_kernel` (sageattention_tpu/ops/paged_decode.py): a bf16 Q
 //        pre-scaled by sm_scale*log2e on the host, K codes upcast and dotted
 //        in f32 times the per-token scale, a bf16 P against V codes upcast
@@ -30,7 +32,9 @@
 // heads of Llama-3-8B still fill the card.  Dead tiles (past the length,
 // outside a window) are skipped, which is exact: they hold only masked
 // scores.  A second launch merges the splits' (m, l, acc) exactly and
-// applies the epilogue.  This first version stages each K/V tile in shared
+// applies the epilogue.  Head dims 64, 128 and 256; at 256 a thread owns two
+// channels of the PV product and the tiles live in dynamic shared memory
+// (above the 48 KB of static shared memory).  This first version stages each K/V tile in shared
 // memory with plain 16-byte loads; cp.async/TMA staging is later work.
 #include <type_traits>
 
@@ -61,7 +65,7 @@ struct Params {
   const int* lpage;      // paged: [B, n_slots] logical page of each stream slot
   const int* win_lo;     // paged sliding: [B]
   int Hg, Hk, R, n_units, n_slots, page, S;
-  int causal, row_mod, window_T, sliding, sinks, sink_pages;
+  int causal, row_mod, row_base, window_T, sliding, sinks, sink_pages;
   float fold;
   float* pm;             // [B*Hg, n_split, R]
   float* pl;
@@ -80,11 +84,19 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
   constexpr int ES = VK == V_BF16 ? 2 : 1;
   constexpr int KSTR = D + 16;                 // padded K row (bytes): no bank conflicts
   constexpr int PM = PAGED ? P_BF16 : (VK == V_I8 ? P_I8 : VK == V_F8 ? P_F8 : P_BF16);
-  constexpr int NG = NT / D;                   // row groups of the PV product
+  constexpr int CPT = D > NT ? D / NT : 1;     // channels per thread of the PV product
+  constexpr int DC = D / CPT;                  // threads per row of the PV product
+  constexpr int NG = NT / DC;                  // row groups of the PV product
   constexpr int MAXJ = (RB + NG - 1) / NG;
-  __shared__ __align__(16) unsigned char sk[TILE * KSTR];
-  __shared__ __align__(16) unsigned char sv[TILE * D * ES];
-  __shared__ __align__(16) unsigned char sq[RB * D * 2];   // int8 codes (B11) or bf16 (D1)
+  // D = 256: the K, V and Q tiles in dynamic shared memory (dyn_bytes)
+  constexpr bool DYN = D > 128;
+  __shared__ __align__(16) unsigned char sk_st[DYN ? 16 : TILE * KSTR];
+  __shared__ __align__(16) unsigned char sv_st[DYN ? 16 : TILE * D * ES];
+  __shared__ __align__(16) unsigned char sq_st[DYN ? 16 : RB * D * 2];   // int8 codes (B11) or bf16 (D1)
+  extern __shared__ __align__(16) unsigned char dyn_smem[];
+  unsigned char* const sk = DYN ? dyn_smem : sk_st;
+  unsigned char* const sv = DYN ? dyn_smem + TILE * KSTR : sv_st;
+  unsigned char* const sq = DYN ? dyn_smem + TILE * KSTR + TILE * D * ES : sq_st;
   __shared__ float sks[TILE];
   __shared__ float ss[RB][TILE + 1];
   __shared__ float sqs[RB], sm[RB], sl[RB], sa[RB];
@@ -135,10 +147,12 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
   if (PAGED && p.sliding) lo = p.win_lo[b];
   const int spp = PAGED ? p.page / TILE : 1;
 
-  const int dcol = tid % D, g = tid / D;
-  float acc[MAXJ];
+  const int dcol = tid % DC, g = tid / DC;   // channels dcol + c * DC, c < CPT
+  float acc[CPT][MAXJ];
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j) acc[j] = 0.f;
+  for (int c = 0; c < CPT; ++c)
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) acc[c][j] = 0.f;
   __syncthreads();
 
   for (int u = u0; u < u1; ++u) {
@@ -229,7 +243,7 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
           s = __fmul_rn(__fmul_rn((float)a, sqs[r]), ksc);
           bool keep = tok < len;
           if (p.causal) {
-            const int pos = q_start + (p.row_mod ? r % p.row_mod : r);
+            const int pos = q_start + (p.row_mod ? (p.row_base + r) % p.row_mod : r);
             keep = keep && tok + kv_start <= pos;
           }
           if (!keep) s = MASK_NEG;
@@ -271,22 +285,25 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
     }
     __syncthreads();
 
-    // ---- PV: thread = one channel of rows g, g + NG, ... ----
-    float t[MAXJ];
+    // ---- PV: thread = CPT channels of rows g, g + NG, ... ----
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) t[j] = 0.f;
-    for (int c = 0; c < TILE; ++c) {
-      const float vv = vval<VK>(sv + c * D * ES, dcol);
+    for (int ci = 0; ci < CPT; ++ci) {
+      float t[MAXJ];
+#pragma unroll
+      for (int j = 0; j < MAXJ; ++j) t[j] = 0.f;
+      for (int c = 0; c < TILE; ++c) {
+        const float vv = vval<VK>(sv + c * D * ES, dcol + ci * DC);
+#pragma unroll
+        for (int j = 0; j < MAXJ; ++j) {
+          const int r = g + j * NG;
+          if (r < R) t[j] = fmaf(ss[r][c], vv, t[j]);
+        }
+      }
 #pragma unroll
       for (int j = 0; j < MAXJ; ++j) {
         const int r = g + j * NG;
-        if (r < R) t[j] = fmaf(ss[r][c], vv, t[j]);
+        if (r < R) acc[ci][j] = __fadd_rn(__fmul_rn(acc[ci][j], sa[r]), t[j]);
       }
-    }
-#pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
-      const int r = g + j * NG;
-      if (r < R) acc[j] = __fadd_rn(__fmul_rn(acc[j], sa[r]), t[j]);
     }
     __syncthreads();
   }
@@ -294,10 +311,12 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(Params p) {
   // ---- this split's partial state ----
   const long long base = ((long long)bh * n_split + split) * R;
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j) {
-    const int r = g + j * NG;
-    if (r < R) p.pacc[(base + r) * D + dcol] = acc[j];
-  }
+  for (int ci = 0; ci < CPT; ++ci)
+#pragma unroll
+    for (int j = 0; j < MAXJ; ++j) {
+      const int r = g + j * NG;
+      if (r < R) p.pacc[(base + r) * D + dcol + ci * DC] = acc[ci][j];
+    }
   if (tid < R) {
     p.pm[base + tid] = sm[tid];
     p.pl[base + tid] = sl[tid];
@@ -343,20 +362,41 @@ decode_combine_kernel(const float* __restrict__ pm, const float* __restrict__ pl
   }
 }
 
+template <int D, int VK, bool PAGED, int RB>
+void launch_split(const Params& p, dim3 grid, cudaStream_t s) {
+  if constexpr (D > 128) {   // the tiles in dynamic shared memory, opted in first
+    constexpr int ES = VK == V_BF16 ? 2 : 1;
+    constexpr int smem = TILE * (D + 16) + TILE * D * ES + RB * D * 2;
+    cudaFuncSetAttribute(decode_split_kernel<D, VK, PAGED, RB>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    decode_split_kernel<D, VK, PAGED, RB><<<grid, NT, smem, s>>>(p);
+  } else {
+    decode_split_kernel<D, VK, PAGED, RB><<<grid, NT, 0, s>>>(p);
+  }
+}
+
 template <int D, int VK, bool PAGED>
 cudaError_t launch_rb(const Params& p, dim3 grid, cudaStream_t s) {
-  if (p.R <= 4) decode_split_kernel<D, VK, PAGED, 4><<<grid, NT, 0, s>>>(p);
-  else if (p.R <= 8) decode_split_kernel<D, VK, PAGED, 8><<<grid, NT, 0, s>>>(p);
-  else if (p.R <= 16) decode_split_kernel<D, VK, PAGED, 16><<<grid, NT, 0, s>>>(p);
-  else decode_split_kernel<D, VK, PAGED, 32><<<grid, NT, 0, s>>>(p);
+  if (p.R <= 4) launch_split<D, VK, PAGED, 4>(p, grid, s);
+  else if (p.R <= 8) launch_split<D, VK, PAGED, 8>(p, grid, s);
+  else if (p.R <= 16) launch_split<D, VK, PAGED, 16>(p, grid, s);
+  else launch_split<D, VK, PAGED, 32>(p, grid, s);
   return cudaGetLastError();
 }
+
 
 template <int D, bool PAGED>
 cudaError_t launch_v(int vkind, const Params& p, dim3 grid, cudaStream_t s) {
   if (vkind == V_I8) return launch_rb<D, V_I8, PAGED>(p, grid, s);
   if (vkind == V_F8) return launch_rb<D, V_F8, PAGED>(p, grid, s);
   return launch_rb<D, V_BF16, PAGED>(p, grid, s);
+}
+
+template <bool PAGED>
+cudaError_t launch_d(int D, int vkind, const Params& p, dim3 grid, cudaStream_t s) {
+  if (D == 64) return launch_v<64, PAGED>(vkind, p, grid, s);
+  if (D == 128) return launch_v<128, PAGED>(vkind, p, grid, s);
+  return launch_v<256, PAGED>(vkind, p, grid, s);
 }
 
 }  // namespace
@@ -376,22 +416,24 @@ int sage_decode(int paged, int vkind, int D, const float* q, const void* k, cons
                 long long v_sb, long long v_sh, long long v_ss, long long ks_sb,
                 long long ks_sh, const int* lens, const int* offsets, const int* table,
                 const int* lpage, const int* win_lo, int B, int Hg, int Hk, int R, int n_units,
-                int n_slots, int page, int S, int causal, int row_mod, int window_T,
+                int n_slots, int page, int S, int causal, int row_mod, int row_base, int window_T,
                 int sliding, int sinks, int sink_pages, int n_split, float fold,
                 const float* v_scale, const float* v_mean, long long vs_sb, float vs_mul,
                 float* pm, float* pl, float* pacc, void* out, int out_f32, float* lse,
                 int lse_mode, float lse_off, void* stream) {
-  if ((D != 64 && D != 128) || R < 1 || R > MAXR || n_split < 1 || vkind < 0 || vkind > 2)
+  if ((D != 64 && D != 128 && D != 256) || R < 1 || R > MAXR || n_split < 1 || vkind < 0 ||
+      vkind > 2)
     return -1;
   if (paged && (page % TILE || page < TILE)) return -1;
   Params p{q, static_cast<const int8_t*>(k), v, ks, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
            ks_sb, ks_sh, lens, offsets, table, lpage, win_lo, Hg, Hk, R, n_units, n_slots,
-           page, S, causal, row_mod, window_T, sliding, sinks, sink_pages, fold, pm, pl, pacc};
+           page, S, causal, row_mod, row_base, window_T, sliding, sinks, sink_pages, fold, pm, pl,
+           pacc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_split, Hg, B);
   cudaError_t e;
-  if (paged) e = D == 64 ? launch_v<64, true>(vkind, p, grid, s) : launch_v<128, true>(vkind, p, grid, s);
-  else e = D == 64 ? launch_v<64, false>(vkind, p, grid, s) : launch_v<128, false>(vkind, p, grid, s);
+  if (paged) e = launch_d<true>(D, vkind, p, grid, s);
+  else e = launch_d<false>(D, vkind, p, grid, s);
   if (e != cudaSuccess) return (int)e;
   if (out_f32)
     decode_combine_kernel<float><<<B * Hg, NT, 0, s>>>(pm, pl, pacc, n_split, R, D, Hg, Hk,

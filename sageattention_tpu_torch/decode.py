@@ -13,8 +13,9 @@ int8 cache halves them.
   fp8 the mean of the codes times the scale is folded out of the V mean, so
   the reconstruction's channel mean equals the true one.
 - **GQA head folding**: the G query heads of a KV head (times T for a
-  verify window) become the rows of one decode block, at most 32 rows;
-  the kernel's results do not depend on the fold.
+  verify window) become the rows of its decode tiles of 32 rows, as in
+  JAX, whenever that takes fewer tiles than one per query head
+  (:func:`fold_heads`); the kernel's results do not depend on the fold.
 - The kernel (B11, ``csrc/decode.cu``) quantizes Q per row, runs the
   online softmax with the quantized P of the V format, reads the cache's
   true length and a verify window's offsets from device memory, and
@@ -186,6 +187,15 @@ def decode_bucket(length: int, block: int = _BUCKET_DEFAULT) -> int:
     return max(block, round_up(length, block))
 
 
+def fold_heads(G: int, T: int) -> bool:
+    """Fold the ``G`` query heads of a KV group (x ``T`` window rows, row
+    ``r = g*T + t``) into the rows of one decode tile, as the JAX package
+    does (``decode.py:301``): when ``T == 1`` or the folded rows take fewer
+    32-row tiles than one tile per query head, ``ceil(G*T/32) < G``.  The
+    cache is then read once per tile instead of once per query head."""
+    return G > 1 and (T == 1 or -(-(G * T) // DECODE_ROWS) < G)
+
+
 def sageattn_decode(q, cache: KVCache, *, tensor_layout: str = "HND",
                     sm_scale: Optional[float] = None, bucket: int = 0, block_k: int = 0,
                     is_causal: bool = True) -> torch.Tensor:
@@ -215,9 +225,7 @@ def sageattn_decode(q, cache: KVCache, *, tensor_layout: str = "HND",
         raise ValueError(f"bucket ({bucket}) exceeds cache max_len ({Smax})")
     G = Hq // Hk
     causal = is_causal and T > 1
-    # the G heads of a KV group (x T window rows, row r = g*T + t) as the rows
-    # of one decode block when they fit; otherwise one block per query head
-    fold = G > 1 and G * T <= DECODE_ROWS
+    fold = fold_heads(G, T)
     qt = q.reshape(B, Hk, G * T, D) if fold else q
     cfg = AttnConfig(
         causal=causal, causal_dynamic=causal,
@@ -231,10 +239,15 @@ def sageattn_decode(q, cache: KVCache, *, tensor_layout: str = "HND",
               v_mean=cache.v_mean, kv_true_dyn=cache.length, cfg=cfg)
     k8, v = cache.k8[:, :, :bucket], cache.v[:, :, :bucket]
     zero = torch.zeros_like(cache.length)
+    # folded causal rows go in one call (the kernel walks them 32 at a time,
+    # with their row base); other rows past 32 in calls of their own, the
+    # causal offset moved to each call's first row
+    step = qt.shape[2] if (fold and causal) else DECODE_ROWS
     outs = []
-    for r0 in range(0, qt.shape[2], DECODE_ROWS):   # unfolded windows past 32 rows
-        r1 = min(qt.shape[2], r0 + DECODE_ROWS)
-        offsets = (torch.stack([cache.length - T + r0, zero]) if causal else None)
+    for r0 in range(0, qt.shape[2], step):
+        r1 = min(qt.shape[2], r0 + step)
+        offsets = (torch.stack([cache.length - T + (0 if fold else r0), zero]) if causal
+                   else None)
         outs.append(attention_call(qt[:, :, r0:r1].to(torch.bfloat16), k8, v,
                                    offsets=offsets, **kv)[0])
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)

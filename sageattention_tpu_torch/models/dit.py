@@ -207,3 +207,39 @@ class DiT(nn.Module):
         x = x.reshape(B, Fr, H // p, W // p, p, p, C)
         return x.permute(0, 1, 2, 4, 3, 5, 6).reshape(B, Fr, H, W, C)
 
+
+def make_dit(cfg: DiTConfig, attn_fn: Optional[AttentionFn] = None, device=None) -> DiT:
+    """``DiT(cfg, attn_fn, device)``, as JAX's ``make_dit``."""
+    return DiT(cfg, attn_fn, device=device)
+
+
+def example_inputs(cfg: DiTConfig, batch: int = 1, generator: Optional[torch.Generator] = None,
+                   device=None):
+    """``(latents [B, F, H, W, C], text [B, L, text_dim], t [B])``: standard
+    normal f32 latents and text from ``generator`` (a fresh one seeded 0 by
+    default), every timestep 500, on ``device`` (the card by default)."""
+    device = torch.device("cuda" if device is None else device)
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    latents = torch.randn(batch, cfg.frames, cfg.height, cfg.width, cfg.in_channels,
+                          generator=generator, device=device)
+    text = torch.randn(batch, cfg.text_len, cfg.text_dim, generator=generator, device=device)
+    t = torch.full((batch,), 500, dtype=torch.int32, device=device)
+    return latents, text, t
+
+
+def diffusion_loss(model: DiT, batch, generator: Optional[torch.Generator] = None, *,
+                   noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The epsilon-prediction MSE of JAX's ``diffusion_loss`` (the training
+    step's workload): ``noisy = alpha * latents + sqrt(1 - alpha^2) * noise``
+    with ``alpha = 1 - t / 1000``, the f32 mean of ``(model(noisy) -
+    noise)^2``.  The noise is standard normal from ``generator`` (where JAX
+    takes a ``jax.random`` key), or given as ``noise``."""
+    latents, text, t = batch
+    if noise is None:
+        noise = torch.randn(latents.shape, generator=generator, device=latents.device,
+                            dtype=latents.dtype)
+    alpha = (1.0 - t.float() / 1000.0)[:, None, None, None, None]
+    noisy = alpha * latents + (1 - alpha ** 2) ** 0.5 * noise
+    pred = model(noisy, text, t)
+    return torch.mean((pred.float() - noise) ** 2)

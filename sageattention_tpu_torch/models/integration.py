@@ -5,10 +5,14 @@
   ``jax.nn.dot_product_attention`` (NHD: [batch, seq, heads, head_dim]), the
   signature the JAX package's models call, and runs :func:`sageattn`, with
   ``mask``/``bias`` as its ``attn_mask`` and a causal
-  ``local_window_size=(left, 0)`` as its sliding window.  What the JAX
-  function hands to the exact ``jax.nn`` attention (a mask and a bias
-  together, sequence lengths, other windows) raises here: there is no
-  silent fallback to another attention.
+  ``local_window_size=(left, 0)`` as its sliding window; ``quant_backward``
+  passes through to the backward.  What the JAX function hands to the exact
+  ``jax.nn`` attention (a mask and a bias together, sequence lengths, other
+  windows) raises here: there is no silent fallback to another attention.
+- :func:`flash_dot_product_attention`: the port's exact attention (bf16
+  flash, B4) with the same arguments, differentiable through the bf16
+  backward kernels C1/C2, as ``jax.nn.dot_product_attention`` is through
+  autodiff in the JAX models.
 - :func:`sage_joint_attention_ragged`: Mochi-style joint attention that
   strips each row's padded text tokens through one ``sageattn_varlen`` call.
 - :func:`layered_attention`: a per-layer selector (the reference's
@@ -22,7 +26,8 @@ from typing import Optional
 
 import torch
 
-from ..core import flash_attention, sageattn
+from ..core import _wants_grad, flash_attention, sageattn
+from ..ops import backward as backward_ops
 
 
 def sage_dot_product_attention(
@@ -41,7 +46,8 @@ def sage_dot_product_attention(
     **kwargs,
 ):
     """SageAttention on NHD inputs with ``jax.nn.dot_product_attention``'s
-    arguments; ``kwargs`` pass through to :func:`sageattn`.  ``mask`` (bool,
+    arguments; ``kwargs`` (``quant_backward``, the mode arguments) pass
+    through to :func:`sageattn`.  ``mask`` (bool,
     keep where True) or ``bias`` (additive, natural log), broadcastable to
     ``[B, 1|H, Sq, Sk]``; ``local_window_size=(left, 0)`` with
     ``is_causal`` attends ``[r - left, r]``."""
@@ -119,6 +125,30 @@ def sage_joint_attention_ragged(query, key, value, text_mask,
     return torch.cat([out_t, out[:, T:]], dim=1).to(query.dtype)
 
 
+class _FlashAttnFn(torch.autograd.Function):
+    """``flash_attention`` (NHD) under autograd: forward with its lse,
+    backward the bf16 C1/C2 from the saved ``(q, k, v, o, lse)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, opts):
+        out, lse = flash_attention(q, k, v, tensor_layout="NHD", return_lse=True, **opts)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.opts = opts
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o = (x.transpose(1, 2) for x in (q, k, v, o))
+        opts = ctx.opts
+        sm_scale = opts["sm_scale"] or q.shape[-1] ** -0.5
+        grads = backward_ops.attention_backward(
+            q, k, v, o, lse, do.transpose(1, 2), sm_scale=sm_scale,
+            is_causal=opts["is_causal"], window=opts["sliding_window"],
+            sinks=opts["attention_sinks"])
+        return (*(g.transpose(1, 2) for g in grads), None)
+
+
 def flash_dot_product_attention(query, key, value, bias=None, mask=None, *,
                                 scale: Optional[float] = None, is_causal: bool = False,
                                 query_seq_lengths=None, key_value_seq_lengths=None,
@@ -128,7 +158,8 @@ def flash_dot_product_attention(query, key, value, bias=None, mask=None, *,
     arguments (NHD), on its bf16 flash kernel (B4): ``is_causal``, ``scale``
     and a causal ``local_window_size=(left, 0)`` (row r attends ``[r -
     left, r]``, plus ``attention_sinks`` first keys).  Masks, biases,
-    sequence lengths and other windows raise."""
+    sequence lengths and other windows raise.  Differentiable: the backward
+    is the bf16 C1/C2."""
     sliding = 0
     if local_window_size is not None:
         lw = (local_window_size if isinstance(local_window_size, (tuple, list))
@@ -142,9 +173,11 @@ def flash_dot_product_attention(query, key, value, bias=None, mask=None, *,
         if val is not None:
             raise NotImplementedError(f"flash_dot_product_attention({name}=...) is not "
                                       "supported")
-    return flash_attention(query, key, value, tensor_layout="NHD", is_causal=is_causal,
-                           sm_scale=scale, sliding_window=sliding,
-                           attention_sinks=attention_sinks).to(query.dtype)
+    opts = dict(is_causal=is_causal, sm_scale=scale, sliding_window=sliding,
+                attention_sinks=attention_sinks)
+    if _wants_grad(query, key, value):
+        return _FlashAttnFn.apply(query, key, value, opts).to(query.dtype)
+    return flash_attention(query, key, value, tensor_layout="NHD", **opts).to(query.dtype)
 
 
 def layered_attention(default_fn=None, overrides=None, skip_layers=()):

@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "decode")
+           "decode", "backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -42,10 +42,15 @@ _ATTN_ARGS = [_I] * 6 + [_P] * 4 + [_LL] * 12 + [_P] * 8 + [_I] * 7 + [_F, _P]
 _ATTN_EXT_ARGS = _ATTN_ARGS[:-1] + [_P, _P] + [_LL] * 3 + [_I] + [_P] * 8 + [_I, _I, _P]
 
 # (paged, vkind, D), (q, k, v, ks), 8 strides, (lens, offsets, table, lpage,
-# win_lo), 15 shape/mode ints, fold, (v_scale, v_mean), vs_sb, vs_mul, (pm,
+# win_lo), 16 shape/mode ints, fold, (v_scale, v_mean), vs_sb, vs_mul, (pm,
 # pl, pacc, out), out_f32, lse, lse_mode, lse_off, stream
-_DECODE_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 8 + [_P] * 5 + [_I] * 15 + [_F] + [_P, _P, _LL, _F]
+_DECODE_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 8 + [_P] * 5 + [_I] * 16 + [_F] + [_P, _P, _LL, _F]
                 + [_P] * 4 + [_I, _P, _I, _F, _P])
+
+# (which, quant, D), (q, k, v, dO, lse2, di, qs, ks, mask), 3 mask strides, Hm,
+# liveness, (dk, dv, dq), (out_f32, B, Hq, Hk, Sqp, Skp, causal, window,
+# sinks), (fold, dk_fin, dq_fin), stream
+_BWD_ARGS = [_I] * 3 + [_P] * 9 + [_LL] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P]
 
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
@@ -59,6 +64,7 @@ SIGNATURES = {
     "sage_attn_fwd_ext": ("attention_ext", _ATTN_EXT_ARGS),
     "sage_attn_fwd_q8_ext": ("attention_q8_ext", _ATTN_EXT_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
+    "sage_attn_bwd": ("backward", _BWD_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "quant": "sage_quant_error_string",
@@ -66,7 +72,8 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_q8": "sage_attn_q8_error_string",
                  "attention_ext": "sage_attn_ext_error_string",
                  "attention_q8_ext": "sage_attn_q8_ext_error_string",
-                 "decode": "sage_decode_error_string"}
+                 "decode": "sage_decode_error_string",
+                 "backward": "sage_bwd_error_string"}
 
 _lock = threading.Lock()
 _libs: dict = {}

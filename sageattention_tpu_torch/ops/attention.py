@@ -40,7 +40,8 @@ minimum row denominator per 64-row query tile.
 
 The decode configuration (B11: a dynamic length ``kv_true_dyn``, dynamic
 causal ``offsets``, ``causal_row_mod`` for folded verify windows, any
-``kv_split``; at most 32 query rows) goes to ``csrc/decode.cu``, a split-KV
+``kv_split``; at most 32 query rows a launch, folded rows past them in
+further launches) goes to ``csrc/decode.cu``, a split-KV
 kernel whose splits are its own choice (:func:`decode_splits`); its keys
 are ``B11-<V format>`` with ``-causal`` or ``-causal-mod``.  Its plain
 version (:func:`decode_plain`) walks the same splits and 64-token tiles.
@@ -509,8 +510,8 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     name = config_name(cfg)
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
-    if D not in (64, 128):
-        raise NotImplementedError(f"the attention kernel takes head_dim 64/128, got {D}")
+    if D not in (64, 128, 256):
+        raise ValueError(f"the attention kernel takes head_dim 64/128/256 (pad first), got {D}")
     static = cfg.softmax_mode == "static"
     out_dtype = cfg.out_dtype if cfg.out_dtype in (torch.bfloat16, torch.float32) else torch.float32
     if not cfg.quantized:
@@ -715,17 +716,20 @@ _VKIND = {torch.int8: 0, torch.float8_e4m3fn: 1, torch.bfloat16: 2}
 
 def decode_launch(*, paged, q, k, v, ks, lens, Hk, S,
                   n_units, n_split, fold=1.0, offsets=None, table=None, lpage=None,
-                  win_lo=None, n_slots=0, page=0, causal=False, row_mod=0, window_T=1,
+                  win_lo=None, n_slots=0, page=0, causal=False, row_mod=0, row_base=0,
+                  window_T=1,
                   sliding=False, sinks=0, sink_pages=0, v_scale=None, vs_mul=1.0,
                   v_mean=None, out_dtype=torch.bfloat16, lse_mode=0, lse_off=0.0):
     """Launch ``csrc/decode.cu`` (the split walk, then the merge) for ``q
     [B, Hg, R, D]`` over the dense cache or the pools ``k``, ``v`` (rows of
     ``D`` along the last axis) and the per-token K scales ``ks`` (tokens
     along the last axis); return ``(out [B, Hg, R, D], lse_base2 | None)``.
+    ``row_base``: the first of these rows among a folded window's rows
+    (their positions are ``q_start + (row_base + r) % row_mod``).
     Every length, offset and table stays on the device."""
     B, Hg, R, D = q.shape
-    if D not in (64, 128):
-        raise NotImplementedError(f"the decode kernel takes head_dim 64/128, got {D}")
+    if D not in (64, 128, 256):
+        raise ValueError(f"the decode kernel takes head_dim 64/128/256 (pad first), got {D}")
     if not 1 <= R <= DECODE_ROWS:
         raise ValueError(f"the decode kernel takes 1..{DECODE_ROWS} query rows, got {R}")
     if v.dtype not in _VKIND:
@@ -752,7 +756,7 @@ def decode_launch(*, paged, q, k, v, ks, lens, Hk, S,
                 k.data_ptr(), v.data_ptr(), ks.data_ptr(), *k.stride()[:3], *v.stride()[:3],
                 ks.stride(0), ks.stride(1),
                 *(ptr(x) for x in ints), B, Hg, Hk, R, n_units, n_slots, page, S, int(causal),
-                row_mod, window_T, int(sliding), sinks, sink_pages, n_split, _F32(fold),
+                row_mod, row_base, window_T, int(sliding), sinks, sink_pages, n_split, _F32(fold),
                 ptr(vs), ptr(vm), vs_sb, _F32(vs_mul), pm.data_ptr(), pl.data_ptr(),
                 pacc.data_ptr(), out.data_ptr(), int(out_f32), ptr(lse), lse_mode,
                 _F32(lse_off))
@@ -774,16 +778,26 @@ def decode_kernel(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, o
     elif v.dtype != _V_DTYPE[cfg.pv_dtype]:
         raise TypeError(f"pv_dtype={cfg.pv_dtype!r} takes {_V_DTYPE[cfg.pv_dtype]} V codes")
     fp8 = cfg.pv_dtype == "fp8"
-    out, lse = decode_launch(
-        paged=False, q=q, k=k, v=v, ks=k_scale.float(), lens=kv_true.reshape(1), Hk=Hk, S=Sk,
-        n_units=-(-Sk // KV_TILE), n_split=decode_splits(B, Hk), fold=cfg.sm_scale * LOG2E,
-        offsets=offsets.reshape(-1) if cfg.causal else None, causal=cfg.causal,
-        row_mod=cfg.causal_row_mod, v_scale=v_scale,
-        vs_mul=(1.0 / 127.0) if cfg.pv_dtype == "int8" else 1.0, v_mean=v_mean,
-        out_dtype=cfg.out_dtype, lse_mode=1 if cfg.emit_lse else 0,
-        lse_off=FP8_OFFSET_LOG2 if fp8 else 0.0)
-    attention_call.launches[name] += 1
-    return out, lse
+    ks = k_scale.float()
+    outs, lses = [], []
+    # folded verify rows past DECODE_ROWS: one launch per 32-row tile, each
+    # told where its rows start among the folded ones
+    for r0 in range(0, R, DECODE_ROWS):
+        out, lse = decode_launch(
+            paged=False, q=q[:, :, r0:r0 + DECODE_ROWS], k=k, v=v, ks=ks,
+            lens=kv_true.reshape(1), Hk=Hk, S=Sk, n_units=-(-Sk // KV_TILE),
+            n_split=decode_splits(B, Hk), fold=cfg.sm_scale * LOG2E,
+            offsets=offsets.reshape(-1) if cfg.causal else None, causal=cfg.causal,
+            row_mod=cfg.causal_row_mod, row_base=r0, v_scale=v_scale,
+            vs_mul=(1.0 / 127.0) if cfg.pv_dtype == "int8" else 1.0, v_mean=v_mean,
+            out_dtype=cfg.out_dtype, lse_mode=1 if cfg.emit_lse else 0,
+            lse_off=FP8_OFFSET_LOG2 if fp8 else 0.0)
+        attention_call.launches[name] += 1
+        outs.append(out)
+        lses.append(lse)
+    if len(outs) == 1:
+        return outs[0], lses[0]
+    return torch.cat(outs, dim=2), (torch.cat(lses, dim=2) if cfg.emit_lse else None)
 
 
 def _segment_ids(x, B, S, what):
@@ -885,11 +899,13 @@ def attention_call(
 def _decode_call(q, k, v, k_scale, v_scale, v_mean, kv_true, offsets, cfg,
                  q_scale, k_head_scale, kn_max, q_segments, attn_mask):
     """``attention_call`` in the decode configuration (B11): at most
-    ``DECODE_ROWS`` query rows; more rows with dynamic offsets or length
-    are the ring's configuration (B10)."""
+    ``DECODE_ROWS`` query rows, or any number of folded verify-window rows
+    (``causal_row_mod``), which the kernel takes 32 at a time; more rows
+    with dynamic offsets or length otherwise are the ring's configuration
+    (B10)."""
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
-    if Sq > DECODE_ROWS:
+    if Sq > DECODE_ROWS and not cfg.causal_row_mod:
         raise NotImplementedError(
             f"dynamic offsets or lengths over {Sq} > {DECODE_ROWS} query rows arrive with "
             "B10 (ring)")

@@ -188,7 +188,7 @@ def test_slice2_sageattn_options_match_jax(kwargs):
     (dict(attention_sinks=4), ValueError),
     (dict(qk_quant_gran="per_row"), ValueError),
     (dict(tensor_layout="HDN"), ValueError),
-    (dict(quant_backward=True), NotImplementedError),
+    (dict(quant_backward="int8"), ValueError),   # True, False or None
     (dict(interpret=True), TypeError),
     (dict(pv_dtype="fp8", softmax_mode="static"), TypeError),
 ])
@@ -224,12 +224,19 @@ def test_value_checks(shapes, causal):
 
 
 def test_inputs_that_require_grad_raise():
+    """Functions with no backward of their own raise on inputs that
+    require grad (``flash_attention`` and the pipeline ``_sage_attention``,
+    as JAX has no VJP for them); ``sageattn`` takes the gradient."""
     q, k, v = qkv(2, 2, 64, 64, seed=81)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tsa.sageattn(q, k, v)
+    for fn in (tsa.flash_attention, port_sage):
+        with pytest.raises(NotImplementedError, match="backward"):
+            fn(q, k, v)
     with torch.no_grad():
         assert tsa.sageattn(q, k, v).shape == q.shape
+        assert tsa.flash_attention(q, k, v).shape == q.shape
+    out = tsa.sageattn(q, k, v)
+    assert out.requires_grad and out.shape == q.shape
 
 
 def test_dispatch_rows():

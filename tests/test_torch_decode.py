@@ -9,6 +9,7 @@ own KV splits).  The port's plain version is held tightly against an exact
 softmax over the same codes.
 """
 
+import dataclasses
 import functools
 
 import jax
@@ -151,6 +152,39 @@ def test_fold_does_not_change_results():
     assert torch.equal(folded, unfolded)
 
 
+def test_fold_decision_and_tiles_match_jax(monkeypatch):
+    """A T = 9 verify window of 4 query heads per KV head: JAX folds the 36
+    rows (two 32-row tiles per KV head instead of four, one per query head,
+    ``decode.py:301``).  The port makes the same decision, runs the folded
+    rows in one call whose rows take the same two tiles, and its output
+    equals the unfolded call's bit for bit and JAX's at the module's bar."""
+    G, T = 4, 9
+    for g, t in ((4, 9), (4, 1), (1, 4), (8, 4), (8, 5), (4, 17), (2, 32)):
+        assert tdec.fold_heads(g, t) == (g > 1 and (t == 1 or -(-(g * t) // jdec._BQ) < g))
+    assert tdec.fold_heads(G, T) and G * T > tatt.DECODE_ROWS
+    q, k, v = _mk(1, 8, 2, 300, T, seed=11)
+    jc, tc = _caches(k, v, 384)
+    rows = []
+    real = tatt.decode_plain
+    monkeypatch.setattr(tatt, "decode_plain",
+                        lambda q_, *a: rows.append(tuple(q_.shape)) or real(q_, *a))
+    folded = tdec.sageattn_decode(torch.tensor(q), tc)
+    assert rows == [(1, 2, G * T, 64)]   # one call per step: 2 tiles per KV head
+    assert -(-rows[0][2] // tatt.DECODE_ROWS) == 2
+    cfg = tatt.AttnConfig(causal=True, causal_dynamic=True, quantized=True, pv_dtype="int8",
+                          sm_scale=64 ** -0.5, kv_len=384, kv_len_dynamic=True,
+                          fuse_v_mean=True, emit_lse=False, fuse_q_quant=True)
+    offsets = torch.stack([tc.length - T, torch.zeros_like(tc.length)])
+    unfolded, _ = tatt.attention_call(torch.tensor(q).bfloat16(), tc.k8, tc.v,
+                                      k_scale=tc.k_scale, v_scale=tc.v_scale, v_mean=tc.v_mean,
+                                      kv_true_dyn=tc.length, offsets=offsets, cfg=cfg)
+    assert torch.equal(folded, unfolded)
+    jo = _np(_jit(jdec.sageattn_decode, jnp.asarray(q), jc, interpret=True))
+    ref = _oracle(q, k, v, T)
+    assert calc_diff(_np(folded), ref) < BAR
+    assert calc_diff(_np(folded), jo) < BAR
+
+
 @pytest.mark.parametrize("fmt", ["int8", "fp8", "bf16"])
 def test_plain_version_matches_exact_softmax_of_codes(fmt):
     """B11's plain version against float64 attention over the same
@@ -214,10 +248,12 @@ def test_errors_jax_raises_the_port_raises():
 
 def test_decode_configuration_routing():
     """The decode fields at prefill sizes are the ring's (B10), not ported;
-    a decode call names its B11 launch key."""
+    a decode call names its B11 launch key.  (Folded verify rows, with
+    ``causal_row_mod``, may pass 32: the kernel walks them 32 at a time.)"""
     cfg = tatt.AttnConfig(quantized=True, pv_dtype="fp8", fuse_q_quant=True, kv_len_dynamic=True,
                           causal=True, causal_dynamic=True, causal_row_mod=4, kv_split=4)
     assert tatt.config_name(cfg) == "B11-fp8-causal-mod"
+    cfg = dataclasses.replace(cfg, causal_row_mod=0)
     q = torch.zeros(1, 2, 33, 64)
     k = torch.zeros(1, 2, 64, 64, dtype=torch.int8)
     with pytest.raises(NotImplementedError, match="B10"):
