@@ -147,19 +147,22 @@ def _scale_of(amax: torch.Tensor, inv: float) -> torch.Tensor:
     return torch.where(amax > 0, amax * inv, torch.ones_like(amax))
 
 
-def fp8_v(v: torch.Tensor, vm: Optional[torch.Tensor], v_scale: torch.Tensor):
+def fp8_v(v: torch.Tensor, vm: Optional[torch.Tensor], v_scale: torch.Tensor,
+          s_true: int = 0):
     """e4m3 V and the ``v_mean`` the epilogue adds (``core.py:489-516`` of
     the JAX package): codes = e4m3((v - vm) / v_scale), and with smoothing
     the per-channel mean of the actual codes over the rows, times the scale,
     comes off ``vm``.  That cancels the codes' rounding bias, which would
     otherwise dominate the fp8 mode's error.  The mean is taken of the
     rounded codes: an optimizer that cancels the f32 -> e4m3 -> f32 round
-    trip would turn the fold into zero (ROADMAP queue 3).
+    trip would turn the fold into zero (ROADMAP queue 3).  Only the rows
+    before ``s_true`` (every row when 0) enter the mean.
     ``v [B,H,S,D]`` -> ``(codes, vm')``."""
     vc = v.float() - vm if vm is not None else v.float()
     codes = (vc / v_scale).to(torch.float8_e4m3fn)
     if vm is not None:
-        code_mean = codes.float().sum(dim=2, keepdim=True) / v.shape[2]
+        n = s_true or v.shape[2]
+        code_mean = codes[:, :, :n].float().sum(dim=2, keepdim=True) / n
         vm = vm - code_mean * v_scale
     return codes, vm
 
@@ -229,11 +232,16 @@ def _sage_attention(
     fuse_q_quant: Optional[bool] = None,
     sliding_window: int = 0,
     attention_sinks: int = 0,
+    kv_true: int = 0,
 ):
     """Shared quantized-attention pipeline (prep -> kernel -> repair), with
     the JAX function's arguments and defaults.  ``block_q``/``block_k`` only
     steer the compute-mode decision and the padded lengths of the static
-    check: explicit blocks keep native compute at any length, as in JAX."""
+    check: explicit blocks keep native compute at any length, as in JAX.
+    ``kv_true``: the true kv length when K and V arrive already padded past
+    it (Ulysses' shards): the kernel masks the columns from it on, and no
+    statistic (K mean and amax, V stats, the static caps) sees those rows;
+    query rows past it give values the caller slices off."""
     layout = get_layout(tensor_layout)
     _no_grad_inputs(q, k, v)
     q, k, v = _to_hnd(layout, q, k, v)
@@ -250,6 +258,9 @@ def _sage_attention(
             raise ValueError("sliding_window requires is_causal=True")
         if attn_mask is not None:
             raise ValueError("sliding_window composes with no user attn_mask")
+        if kv_true:
+            raise ValueError("sliding_window with pre-padded kv_true is unsupported; "
+                             "pass unpadded inputs")
     if attention_sinks and not sliding_window:
         raise ValueError("attention_sinks requires sliding_window")
     if sm_scale is None:
@@ -261,6 +272,9 @@ def _sage_attention(
         raise ValueError("q, k and v must be on one device")
     if pv_dtype not in ("int8", "fp8", "bf16"):
         raise ValueError(f"unknown pv_dtype {pv_dtype!r}")
+    Sk_true = kv_true or Sk
+    if not 0 < Sk_true <= Sk:
+        raise ValueError(f"kv_true {kv_true} out of range for kv_len {Sk}")
     masked = "none"
     if attn_mask is not None:
         if attn_mask.ndim != 4 or attn_mask.shape[1] not in (1, Hq) or (
@@ -316,31 +330,31 @@ def _sage_attention(
     km = vm = v_amax = k_capmax = k_scale = ks_sc = None
     merged = smooth_k and smooth_v and pv_dtype == "int8" and head
     if merged:
-        res = prep_k_onepass(k, Sk, with_capmax=static)
+        res = prep_k_onepass(k, Sk_true, with_capmax=static)
         k_i8, km, k_head_amax = res[:3]
         k_capmax = res[3] if static else None
         ks_sc = _scale_of(k_head_amax, _INV127)
-        v_in, vm, v_amax = prep_v_onepass(v, Sk)
+        v_in, vm, v_amax = prep_v_onepass(v, Sk_true)
     else:
         if smooth_k:
-            km, k_amax_ch = channel_stats(k, Sk)
+            km, k_amax_ch = channel_stats(k, Sk_true)
         elif head:
-            k_amax_ch = k.float().abs().amax(dim=2, keepdim=True)
+            k_amax_ch = k[:, :, :Sk_true].float().abs().amax(dim=2, keepdim=True)
         if head:
             ks_sc = _scale_of(k_amax_ch.amax(dim=3, keepdim=True), _INV127)
-            res = quant_int8_fixed(k, ks_sc, sub=km, with_capmax=static, s_true=Sk)
+            res = quant_int8_fixed(k, ks_sc, sub=km, with_capmax=static, s_true=Sk_true)
             k_i8, k_capmax = res if static else (res, None)
         else:
-            res = quant_int8_groupwise(k, k_group, sub=km, with_capmax=static, s_true=Sk)
+            res = quant_int8_groupwise(k, k_group, sub=km, with_capmax=static, s_true=Sk_true)
             k_i8 = res[0][:, :, :Sk]
             k_scale = quant_ops.expand_scales_cols(
                 res[1], k_group, res[0].shape[2])[..., :Sk]
             k_capmax = res[2] if static else None
         if pv_dtype != "bf16":
             if smooth_v:
-                vm, v_amax = channel_stats(v, Sk)
+                vm, v_amax = channel_stats(v, Sk_true)
             else:
-                v_amax = v.float().abs().amax(dim=2, keepdim=True)
+                v_amax = v[:, :, :Sk_true].float().abs().amax(dim=2, keepdim=True)
     v_scale = None
     if pv_dtype == "int8":
         v_scale = _scale_of(v_amax, _INV127)
@@ -348,7 +362,7 @@ def _sage_attention(
             v_in = quant_int8_fixed(v, v_scale, sub=vm)
     elif pv_dtype == "fp8":
         v_scale = _scale_of(v_amax, _INV448)
-        v_in, vm = fp8_v(v, vm, v_scale)
+        v_in, vm = fp8_v(v, vm, v_scale, Sk_true)
     else:
         v_in = v.to(torch.bfloat16)
     ks_head = None if ks_sc is None else _per_q_head(ks_sc, Hq)   # [B,Hq,1,1]
@@ -369,7 +383,7 @@ def _sage_attention(
     def _call(mode):
         cfg = AttnConfig(
             causal=is_causal, quantized=True, pv_dtype=pv_dtype, layout="HND",
-            kv_len=Sk, out_dtype=q.dtype if torch.is_floating_point(q) else torch.bfloat16,
+            kv_len=Sk_true, out_dtype=q.dtype if torch.is_floating_point(q) else torch.bfloat16,
             fold_k_scale=head, compute_dtype=compute_dtype, softmax_mode=mode,
             fp8_native_dot=caps.has_fast_fp8, emit_lse=return_lse,
             fuse_v_mean=vm is not None, pv_via_bf16=(mode == "online" and static),

@@ -20,6 +20,15 @@
 //             e4m3 V, l summing the rounded P (online softmax only).
 // Shared rules: causal with above-diagonal tiles skipped, the kv tail
 // masked beyond kv_len, GQA through h / (Hq/Hk), head dim 64, 128 or 256.
+// The ring's configuration (B10, `parallel/ring.py`'s `_cfg` in the JAX
+// package) adds two device scalars, read once at the start of each block so
+// that the host reads and copies nothing per ring step: the causal offsets
+// (q_start, kv_start), under which row r sees column c iff kv_start + c <=
+// q_start + r (a kv tile runs iff its first column's position is at most
+// the q tile's last row's; a chunk from a later shard runs none), and the
+// true length of a padded chunk, which cuts kv_len.  Only the DYN
+// instantiations (attention_ring.cu, a pre-quantized Q) read them: in the
+// others both are compile-time zeros, so their code is what it was before.
 //
 // The EXT instantiations (built by attention_ext.cu / attention_q8_ext.cu)
 // add the options of the Pallas kernel's B7-B9 configurations, every one a
@@ -96,6 +105,8 @@ struct Params {
   float* lmin;                // [B*Hq*n_qt] (static, fused Q), or null
   int Hq, Hk, Sq, Sk, kv_len, causal;
   float fold;                 // sm_scale * log2(e)
+  const int* offsets;         // [2] (q_start, kv_start) on the device (B10), or null
+  const int* kv_true;         // [1] true kv length on the device (B10), or null
   // read by the EXT instantiations only
   const int8_t* mask;         // [B, Hm, Sq, Sk] bool keep-mask, or null
   const float* bias;          // [B, Hm, Sq, Sk] additive bias (natural log), or null
@@ -183,9 +194,9 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
 
 // T: the Q operand in global memory (bf16 / f32 float Q, int8 codes when
 // pre-quantized); O: the output.
-// The kernel body; attn_fwd_kernel (plain) and attn_fwd_ext_kernel (EXT)
-// below are its two entry points.
-template <int QM, bool STATIC, int PV, int D, bool EXT, typename T, typename O>
+// The kernel body; attn_fwd_kernel (plain), attn_fwd_ext_kernel (EXT) and
+// attn_fwd_ring_kernel (DYN) below are its entry points.
+template <int QM, bool STATIC, int PV, int D, bool EXT, bool DYN, typename T, typename O>
 __device__ __forceinline__ void attn_fwd_body(const Params p) {
   constexpr bool KI8 = (QM == Q_INT8);          // K stays int8 in smem
   constexpr bool QPRE = std::is_same<T, int8_t>::value;
@@ -219,7 +230,11 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
 
   const int n_qt = (p.Sq + BQ - 1) / BQ;
   // causal: the longest q tiles first, so the tail of the grid is short work
+  // (a later q tile sees at least as many kv tiles under any offsets)
   const int qt = p.causal ? (n_qt - 1 - (int)blockIdx.x) : (int)blockIdx.x;
+  // B10 (DYN): the causal shift q_start - kv_start and the true kv length
+  const int shift = DYN && p.offsets ? p.offsets[0] - p.offsets[1] : 0;
+  const int kv_len = DYN && p.kv_true ? min(p.kv_len, max(0, p.kv_true[0])) : p.kv_len;
   const int hq = blockIdx.y, b = blockIdx.z;
   const int hk = hq / (p.Hq / p.Hk);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -338,8 +353,15 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
 #pragma unroll
   for (int n = 0; n < NT_D; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
-  int n_kt = (p.kv_len + BK - 1) / BK;
-  if (p.causal) n_kt = min(n_kt, (min(q0 + BQ, p.Sq) - 1) / BK + 1);
+  int n_kt = (kv_len + BK - 1) / BK;
+  if (p.causal) {  // the kv tiles whose first column some row of the tile sees
+    if constexpr (DYN) {
+      const int last = min(q0 + BQ, p.Sq) - 1 + shift;
+      n_kt = last < 0 ? 0 : min(n_kt, last / BK + 1);
+    } else {
+      n_kt = min(n_kt, (min(q0 + BQ, p.Sq) - 1) / BK + 1);
+    }
+  }
   const uint8_t* kbase = static_cast<const uint8_t*>(p.k);
   const uint8_t* vbase = static_cast<const uint8_t*>(p.v);
   const bool col_scale = p.k_scale != nullptr;
@@ -386,7 +408,7 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
       const int r = idx / CHV, c = idx % CHV, gr = k0 + r;
       const bool has_k = CHK == CHV || c < CHK;
       uint4 kq = make_uint4(0, 0, 0, 0), vq = make_uint4(0, 0, 0, 0);
-      if (gr < p.kv_len) {
+      if (gr < kv_len) {
         if (has_k)
           kq = *reinterpret_cast<const uint4*>(
               kbase + (b * p.k_sb + hk * p.k_sh + gr * p.k_ss) * K_ELEM + c * 16);
@@ -418,7 +440,7 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
         for (int i = 0; i < 16; i += 2) store2(vd + i, (float)vc[i], (float)vc[i + 1]);
       }
     }
-    if (col_scale && tid < BK) s_ks[tid] = k0 + tid < p.kv_len ? ksb[k0 + tid] : 0.f;
+    if (col_scale && tid < BK) s_ks[tid] = k0 + tid < kv_len ? ksb[k0 + tid] : 0.f;
     if (EXT && p.kv_seg && tid < BK) {
       const int c = k0 + tid;
       s_kvseg[tid] = c < p.Sk ? p.kv_seg[(long long)b * p.Sk + c] : -3;
@@ -479,16 +501,16 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
     }
 
     // ---- masks: kv tail and causal, only on tiles that straddle them ----
-    const bool tail = k0 + BK > p.kv_len;
-    const bool diag = p.causal && (k0 + BK - 1 > q0);
+    const bool tail = k0 + BK > kv_len;
+    const bool diag = p.causal && (k0 + BK - 1 > q0 + shift);
     if (tail || diag) {
 #pragma unroll
       for (int n = 0; n < 8; ++n)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int col = k0 + n * 8 + 2 * t + (i & 1);
-          const int row = q0 + (i < 2 ? rA : rB);
-          if (col >= p.kv_len || (p.causal && col > row)) s[n][i] = MASK_NEG;
+          const int row = q0 + (i < 2 ? rA : rB) + shift;
+          if (col >= kv_len || (p.causal && col > row)) s[n][i] = MASK_NEG;
         }
     }
     if (EXT) {
@@ -675,7 +697,14 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
 
 template <int QM, bool STATIC, int PV, int D, typename T, typename O>
 __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
-  attn_fwd_body<QM, STATIC, PV, D, false, T, O>(p);
+  attn_fwd_body<QM, STATIC, PV, D, false, false, T, O>(p);
+}
+
+// The ring's entry (B10): the plain body reading the device offsets and
+// true length.
+template <int QM, bool STATIC, int PV, int D, typename T, typename O>
+__global__ void __launch_bounds__(kThreads) attn_fwd_ring_kernel(Params p) {
+  attn_fwd_body<QM, STATIC, PV, D, false, true, T, O>(p);
 }
 
 // The EXT entry keeps the plain one's occupancy (3 blocks per SM at D = 128,
@@ -686,12 +715,13 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_kernel(Params p) {
 template <int QM, bool STATIC, int PV, int D, typename T, typename O>
 __global__ void __launch_bounds__(kThreads, (D == 64 ? 4 : D == 128 ? 3 : 1))
     attn_fwd_ext_kernel(Params p) {
-  attn_fwd_body<QM, STATIC, PV, D, true, T, O>(p);
+  attn_fwd_body<QM, STATIC, PV, D, true, false, T, O>(p);
 }
 
 // Runs the kernel for (qmode, static, pv, D) with Q operand T and output O,
-// in the plain (EXT false) or the B7-B9 (EXT true) instantiation.
-template <typename T, typename O, bool EXT>
+// in the plain (EXT and DYN false), the B7-B9 (EXT) or the ring's (DYN)
+// instantiation.
+template <typename T, typename O, bool EXT, bool DYN = false>
 struct Launcher {
   const Params& p;
   dim3 grid;
@@ -704,12 +734,17 @@ struct Launcher {
       // so the kernel opts in first)
       constexpr int row = QM == Q_INT8 ? D + 16 : 2 * (D + 8);
       constexpr int smem = 2 * BQ * row + BK * 2 * (D + 8);
-      auto kern = EXT ? attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O>
-                      : attn_fwd_kernel<QM, STATIC, PV, D, T, O>;
+      auto kern = [] {   // only the entry this instantiation launches
+        if constexpr (EXT) return attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O>;
+        else if constexpr (DYN) return attn_fwd_ring_kernel<QM, STATIC, PV, D, T, O>;
+        else return attn_fwd_kernel<QM, STATIC, PV, D, T, O>;
+      }();
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       kern<<<grid, kThreads, smem, st>>>(p);
     } else if constexpr (EXT) {
       attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
+    } else if constexpr (DYN) {
+      attn_fwd_ring_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
     } else {
       attn_fwd_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
     }
@@ -766,7 +801,7 @@ inline Params make_params(const void* q, const void* k, const void* v, void* o,
   p.q_scale = q_scale; p.k_scale = k_scale; p.k_head_scale = k_head_scale;
   p.kn_max = kn_max; p.v_scale = v_scale; p.v_mean = v_mean; p.lse = lse; p.lmin = lmin;
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.Sk = Sk; p.kv_len = kv_len; p.causal = causal;
-  p.fold = fold;
+  p.fold = fold; p.offsets = p.kv_true = nullptr;
   p.mask = nullptr; p.bias = nullptr; p.m_sb = p.m_sh = p.m_ss = 0; p.Hm = 1;
   p.live = nullptr; p.q_seg = p.kv_seg = p.kv_segpos = nullptr; p.sinkblk = nullptr;
   p.qseg_rng = p.kvseg_rng = nullptr;

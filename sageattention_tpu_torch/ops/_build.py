@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "decode", "backward")
+           "attention_ring", "decode", "backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -36,6 +36,8 @@ _P, _I, _F, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlo
 # (modes, dtypes, D), (q, k, v, o), 12 strides, 8 scale/stat pointers,
 # (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
 _ATTN_ARGS = [_I] * 6 + [_P] * 4 + [_LL] * 12 + [_P] * 8 + [_I] * 7 + [_F, _P]
+# the ring's build (B10) adds the device offsets and true length
+_ATTN_RING_ARGS = _ATTN_ARGS[:-1] + [_P, _P, _P]
 # the B7-B9 builds add: mask, bias, 3 mask strides, Hm, liveness, q/kv segment
 # ids, kv_segpos, the q/kv tiles' segment-id ranges, sink tiles, per-row K
 # scales, window, sinks
@@ -63,6 +65,7 @@ SIGNATURES = {
     "sage_attn_fwd_q8": ("attention_q8", _ATTN_ARGS),
     "sage_attn_fwd_ext": ("attention_ext", _ATTN_EXT_ARGS),
     "sage_attn_fwd_q8_ext": ("attention_q8_ext", _ATTN_EXT_ARGS),
+    "sage_attn_fwd_ring": ("attention_ring", _ATTN_RING_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
 }
@@ -72,6 +75,7 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_q8": "sage_attn_q8_error_string",
                  "attention_ext": "sage_attn_ext_error_string",
                  "attention_q8_ext": "sage_attn_q8_ext_error_string",
+                 "attention_ring": "sage_attn_ring_error_string",
                  "decode": "sage_decode_error_string",
                  "backward": "sage_bwd_error_string"}
 

@@ -45,7 +45,12 @@ further launches) goes to ``csrc/decode.cu``, a split-KV
 kernel whose splits are its own choice (:func:`decode_splits`); its keys
 are ``B11-<V format>`` with ``-causal`` or ``-causal-mod``.  Its plain
 version (:func:`decode_plain`) walks the same splits and 64-token tiles.
-The same fields over more rows are the ring's (B10), not ported yet.
+The same fields over more rows are the ring's (B10, ``parallel/ring.py``):
+the prefill kernel on a pre-quantized Q (``csrc/attention_ring.cu``) with
+causal positions shifted by the device ``offsets`` ``(q_start, kv_start)``
+(a kv column is seen iff ``kv_start + col <= q_start + row``) and the kv
+length cut at the device ``kv_true_dyn``; its keys are ``B10-<base key>``
+with ``-offsets`` and/or ``-kvtrue``.
 
 A CPU tensor takes the plain version, a CUDA tensor the kernel; there is no
 fallback between the two.  ``attention_call.launches`` counts kernel
@@ -116,19 +121,28 @@ class AttnConfig:
                 or self.pv_via_bf16)
 
 
-_LATER = {"p_sim_fp4": "queue 1 item 14 (low-bit simulation)"}
+_LATER = {"p_sim_fp4": "the low-bit simulation (ops/lowbit.py, ROADMAP queue 1)"}
 DECODE_ROWS = 32            # query rows of one decode block (JAX's _BQ)
 DECODE_SPLIT_BLOCKS = 264   # decode blocks to aim for: two on each of the H100's 132 SMs
 DECODE_MAX_SPLITS = 32
 
 
-def is_decode(cfg: AttnConfig) -> bool:
-    """True for the decode configuration (B11): a dynamic length, dynamic
-    causal offsets, folded verify rows or a KV split, as
-    ``sageattn_decode`` sets them.  At prefill sizes the same fields are
-    the ring's (B10)."""
-    return bool(cfg.kv_len_dynamic or cfg.causal_dynamic or cfg.causal_row_mod
-                or cfg.kv_split != 1)
+def is_decode(cfg: AttnConfig, rows: int) -> bool:
+    """True for the decode configuration (B11) of a launch over ``rows``
+    query rows: folded verify rows, or a dynamic length, dynamic causal
+    offsets or a KV split over at most ``DECODE_ROWS`` rows, as
+    ``sageattn_decode`` sets them."""
+    if cfg.causal_row_mod:
+        return True
+    return (bool(cfg.kv_len_dynamic or cfg.causal_dynamic or cfg.kv_split != 1)
+            and rows <= DECODE_ROWS)
+
+
+def is_ring(cfg: AttnConfig, rows: int) -> bool:
+    """True for the ring's configuration (B10): a dynamic length or dynamic
+    causal offsets at prefill sizes (more than ``DECODE_ROWS`` rows).  A KV
+    split there changes nothing: the kernel picks its own tiles."""
+    return bool(cfg.kv_len_dynamic or cfg.causal_dynamic) and not is_decode(cfg, rows)
 
 
 def _decode_name(cfg: AttnConfig) -> str:
@@ -154,6 +168,12 @@ def _decode_name(cfg: AttnConfig) -> str:
     if cfg.causal:
         name += "-causal-mod" if cfg.causal_row_mod else "-causal"
     return name
+
+
+def _extended(cfg: AttnConfig) -> bool:
+    """True for the configurations built from the B7-B9 kernel sources."""
+    return (cfg.masked != "none" or cfg.segmented or bool(cfg.window)
+            or cfg.fuse_k_rows)
 
 
 def _check_options(cfg: AttnConfig) -> None:
@@ -208,17 +228,18 @@ def _base_name(cfg: AttnConfig) -> str:
     return "B6-static" if static else "B6-online"
 
 
-def config_name(cfg: AttnConfig) -> str:
-    """The port's launch key for ``cfg``: the base configuration (B1-B6) and
-    the suffixes of its B7-B9 options; raises ``NotImplementedError``
-    naming the later slice for options not ported yet."""
+def config_name(cfg: AttnConfig, rows: int) -> str:
+    """The port's launch key for ``cfg`` over ``rows`` query rows: the base configuration (B1-B6) and the suffixes of
+    its B7-B9 options, B10's prefix and suffixes, or B11's key; raises
+    ``NotImplementedError`` naming the later slice for options not ported
+    yet."""
     for field, slice_ in _LATER.items():
         val = getattr(cfg, field)
         if val:
             raise NotImplementedError(f"AttnConfig.{field}={val!r} arrives with {slice_}")
     if cfg.layout != "HND":
         raise ValueError("attention_call operates in HND; transpose first")
-    if is_decode(cfg):
+    if is_decode(cfg, rows):
         return _decode_name(cfg)
     if cfg.softmax_mode not in ("static", "online"):
         raise ValueError(f"unknown softmax_mode {cfg.softmax_mode!r}")
@@ -234,41 +255,52 @@ def config_name(cfg: AttnConfig) -> str:
         name += "-seg"
     if cfg.window:
         name += "-window"
+    if is_ring(cfg, rows):
+        if not cfg.quantized or cfg.fuse_q_quant:
+            raise ValueError("the ring configuration (B10) takes a pre-quantized Q "
+                             "(int8 codes with q_scale)")
+        if _extended(cfg):
+            raise ValueError("the ring configuration (B10) composes with no masks, "
+                             "segments, window or row K scales")
+        if cfg.causal_dynamic and not cfg.causal:
+            raise ValueError("causal_dynamic needs causal")
+        name = "B10-" + name + ("-offsets" if cfg.causal_dynamic else "") + (
+            "-kvtrue" if cfg.kv_len_dynamic else "")
     return name
 
 
 def _launch_keys() -> tuple:
     """Every key :func:`config_name` gives: each valid combination of the
-    fields that name a configuration."""
+    fields that name a configuration, over one query tile (prefill-sized)
+    and, for the decode configuration, over ``DECODE_ROWS`` rows."""
     keys = {}
-    for quantized, pv, cd, sm, fqq, fold, via, rows, masked, seg, window in itertools.product(
+    for quantized, pv, cd, sm, fqq, fold, via, krows, masked, seg, window in itertools.product(
             (True, False), ("int8", "fp8", "bf16"), ("native", "bf16"), ("static", "online"),
             (True, False), (True, False), (False, True), (False, True),
             ("none", "bool", "float"), (False, True), (0, 1)):
         cfg = AttnConfig(causal=True, quantized=quantized, pv_dtype=pv, compute_dtype=cd,
                          softmax_mode=sm, fuse_q_quant=fqq, fold_k_scale=fold,
-                         pv_via_bf16=via, fuse_k_rows=rows, masked=masked, segmented=seg,
+                         pv_via_bf16=via, fuse_k_rows=krows, masked=masked, segmented=seg,
                          window=window)
         try:
-            keys.setdefault(config_name(cfg))
+            keys.setdefault(config_name(cfg, Q_TILE))
         except ValueError:
             continue
+        if _extended(cfg) or not quantized or fqq:
+            continue
+        for dyn_causal, dyn_len in ((True, False), (False, True), (True, True)):
+            keys.setdefault(config_name(dataclasses.replace(
+                cfg, causal_dynamic=dyn_causal, kv_len_dynamic=dyn_len), Q_TILE))
     for pv, causal, mod in itertools.product(("int8", "fp8", "bf16"), (False, True), (0, 2)):
         if mod and not causal:
             continue
         keys.setdefault(config_name(AttnConfig(
             quantized=True, pv_dtype=pv, fuse_q_quant=True, kv_len_dynamic=True,
-            causal=causal, causal_dynamic=causal, causal_row_mod=mod)))
+            causal=causal, causal_dynamic=causal, causal_row_mod=mod), DECODE_ROWS))
     return tuple(keys)
 
 
 LAUNCH_KEYS = _launch_keys()
-
-
-def _extended(cfg: AttnConfig) -> bool:
-    """True for the configurations built from the B7-B9 kernel sources."""
-    return (cfg.masked != "none" or cfg.segmented or bool(cfg.window)
-            or cfg.fuse_k_rows)
 
 
 def _per_q_head(x: torch.Tensor, Hq: int) -> torch.Tensor:
@@ -334,15 +366,36 @@ def _p_tile(st, m_next, p_mode):
     return p, p.sum(dim=-1, keepdim=True)
 
 
+def _dynamic(cfg, ext):
+    """``(shift, kv_len)``: ``q_start - kv_start`` of the ring's device
+    offsets (0 without them), and the kv length, cut at the device true
+    length under ``kv_len_dynamic``.  Read on the host: the plain version
+    only."""
+    kv_len = cfg.kv_len or ext["Sk"]
+    if cfg.kv_len_dynamic:
+        kv_len = max(0, min(kv_len, int(ext["kv_true"].reshape(-1)[0])))
+    shift = 0
+    if cfg.causal and cfg.causal_dynamic:
+        q_start, kv_start = (int(x) for x in ext["offsets"].reshape(-1)[:2])
+        shift = q_start - kv_start
+    return shift, kv_len
+
+
+def _col_hi(cfg, ext, r1):
+    """Columns past which every score of the rows before ``r1`` is masked."""
+    shift, kv_len = _dynamic(cfg, ext)
+    return min(kv_len, max(0, r1 + shift)) if cfg.causal else kv_len
+
+
 def _keep_mask(cfg, rows, cols, r0, r1, hi, ext):
     """True where a score of query rows ``rows`` (``[r1-r0, 1]``) and kv
     columns ``cols[:hi]`` survives the kv tail, causal, window, segment and
     bool masks; ``[B|1, Hm|1, r1-r0, hi]``."""
     c = cols[None, :hi]
-    kv_len = cfg.kv_len or ext["Sk"]
+    shift, kv_len = _dynamic(cfg, ext)
     keep = c < kv_len
     if cfg.causal:
-        keep = keep & (c <= rows)
+        keep = keep & (c <= rows + shift)
         if cfg.window:
             band = c >= rows - (cfg.window - 1)
             if cfg.sinks:
@@ -362,7 +415,8 @@ def _keep_mask(cfg, rows, cols, r0, r1, hi, ext):
 
 def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                     v_scale=None, v_mean=None, q_scale=None, k_scale=None,
-                    q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None):
+                    q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None,
+                    offsets=None, kv_true=None):
     """Plain PyTorch version of the kernel: the same quantization points,
     exact int8 QK^T (an f32 product of int8 codes is exact for D <= 256 with
     TF32 off), P summed into l as the kernel rounds it (unrounded f32 for a
@@ -371,13 +425,13 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     the kernel skips (dead under a mask or below a window) holds only masked
     scores here, which changes no running sum, so both agree exactly.
     ``q_segments [B,Sq]``, ``kv_segments``/``kv_segpos [B,Sk]``,
-    ``attn_mask [B,Hm,Sq,Sk]`` (bool keep-mask or float bias).
+    ``attn_mask [B,Hm,Sq,Sk]`` (bool keep-mask or float bias); B10's
+    ``offsets`` (q_start, kv_start) and ``kv_true`` int32 tensors.
 
     Returns ``(out [B,Hq,Sq,D], lse_base2 [B,Hq,Sq] | None, lmin | None)``."""
-    name = config_name(cfg)
     B, Hq, Sq, D = q.shape
+    name = config_name(cfg, Sq)
     Sk = k.shape[2]
-    kv_len = cfg.kv_len or Sk
     static = cfg.softmax_mode == "static"
     p_mode = "bf16" if cfg.p_bf16 else cfg.pv_dtype
     qop, qse, cap = _prepare_q(q, cfg, name, k_head_scale, kn_max, q_scale)
@@ -386,7 +440,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     ksc = None if k_scale is None else _per_q_head(k_scale.float(), Hq)   # [B,Hq,1,Sk]
     fold = _F32(cfg.sm_scale * LOG2E)
     ext = dict(Sk=Sk, q_segments=q_segments, kv_segments=kv_segments,
-               kv_segpos=kv_segpos, attn_mask=attn_mask)
+               kv_segpos=kv_segpos, attn_mask=attn_mask, offsets=offsets, kv_true=kv_true)
     # query rows per step: keep the [B, Hq, rows, Sk] f32 scores near 512 MB
     chunk = max(Q_TILE, (2 ** 27 // max(1, B * Hq * Sk)) // Q_TILE * Q_TILE)
     cols = torch.arange(Sk, device=q.device)
@@ -395,7 +449,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
         for r0 in range(0, Sq, chunk):
             r1 = min(Sq, r0 + chunk)
             rows = torch.arange(r0, r1, device=q.device)[:, None]
-            hi = min(kv_len, r1) if cfg.causal else kv_len  # cols past it are all masked
+            hi = _col_hi(cfg, ext, r1)  # cols past it are all masked
             s = torch.matmul(qop[:, :, r0:r1], kf[:, :, :hi].transpose(-1, -2))
             if qse is not None:
                 s = s * qse[:, :, r0:r1]
@@ -422,7 +476,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                     alpha = torch.exp2(m - m_next)
                     p, l_cur = _p_tile(st, m_next, p_mode)
                     l = alpha * l + l_cur
-                    acc = acc * alpha + torch.matmul(p, vf[:, :, c0:c0 + KV_TILE])
+                    acc = acc * alpha + torch.matmul(p, vf[:, :, c0:c0 + st.shape[-1]])
                     m = m_next
             l_safe = torch.where(l == 0, torch.ones_like(l), l)
             o = acc * (1.0 / l_safe)
@@ -502,13 +556,15 @@ _V_DTYPE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
 
 def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                      v_scale=None, v_mean=None, q_scale=None, k_scale=None,
-                     q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None):
+                     q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None,
+                     offsets=None, kv_true=None):
     """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/attention.cu``
     (fused Q, flash) or ``attention_q8.cu`` (pre-quantized Q), and their
     ``*_ext.cu`` builds for the B7-B9 options; same arguments and returns
-    as :func:`attention_plain`."""
-    name = config_name(cfg)
+    as :func:`attention_plain`.  B10's offsets and true length stay on the
+    device: the kernel reads them."""
     B, Hq, Sq, D = q.shape
+    name = config_name(cfg, Sq)
     _, Hk, Sk, _ = k.shape
     if D not in (64, 128, 256):
         raise ValueError(f"the attention kernel takes head_dim 64/128/256 (pad first), got {D}")
@@ -550,6 +606,9 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     knm = _f32c(_per_q_head(kn_max, Hq)) if static else None
     head_scale = None if cfg.fuse_k_rows else _f32c(k_head_scale)
     vs, vm = _f32c(v_scale), _f32c(v_mean)
+    offs = (offsets.reshape(-1)[:2].to(torch.int32).contiguous()
+            if cfg.causal and cfg.causal_dynamic else None)
+    kvt = kv_true.reshape(-1)[:1].to(torch.int32).contiguous() if cfg.kv_len_dynamic else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     qmode = 2 if not cfg.quantized else (1 if cfg.compute_dtype == "bf16" else 0)
     args = [qmode, int(static), pv, in_dtype, 0 if out_dtype == torch.bfloat16 else 1, D,
@@ -558,7 +617,10 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
             ptr(qs), ptr(ks), ptr(head_scale), ptr(knm), ptr(vs), ptr(vm), ptr(lse), ptr(lmin),
             B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal), _F32(cfg.sm_scale * LOG2E)]
     fn = "sage_attn_fwd" if in_dtype != 2 else "sage_attn_fwd_q8"
-    if _extended(cfg):
+    if is_ring(cfg, Sq):
+        fn = "sage_attn_fwd_ring"
+        args += [ptr(offs), ptr(kvt)]
+    elif _extended(cfg):
         fn += "_ext"
         mask = bias = live = sinkblk = None
         m_strides, Hm = (0, 0, 0), 1
@@ -768,7 +830,7 @@ def decode_launch(*, paged, q, k, v, ks, lens, Hk, S,
 def decode_kernel(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, offsets):
     """Launch B11 on CUDA tensors; same arguments and returns as
     :func:`decode_plain`."""
-    name = config_name(cfg)
+    name = config_name(cfg, q.shape[2])
     B, Hq, R, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
     if k.dtype != torch.int8:
@@ -837,20 +899,23 @@ def attention_call(
     ``lmin`` for the static fused-Q configurations, as the JAX
     ``attention_call`` does.
     """
-    name = config_name(cfg)
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
-    if is_decode(cfg):
+    config_name(cfg, Sq)
+    if is_decode(cfg, Sq):
         return _decode_call(q, k, v, k_scale, v_scale, v_mean, kv_true_dyn, offsets,
                             cfg, q_scale, k_head_scale, kn_max, q_segments, attn_mask)
+    if (offsets is not None) != (cfg.causal and cfg.causal_dynamic):
+        raise ValueError("offsets (q_start, kv_start) are given iff causal and causal_dynamic")
+    if (kv_true_dyn is not None) != cfg.kv_len_dynamic:
+        raise ValueError("kv_true_dyn is given iff kv_len_dynamic")
     for arg, val in dict(offsets=offsets, kv_true_dyn=kv_true_dyn).items():
-        if val is not None:
-            raise NotImplementedError(f"attention_call({arg}=...) outside the decode "
-                                      "configuration arrives with B10 (ring)")
+        if val is not None and val.device != q.device:
+            raise ValueError(f"{arg} is on device {val.device}, the attention on {q.device}")
     if Hq % Hk or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    if cfg.causal and Sq != Sk:
-        raise ValueError("causal attention needs Sq == Sk")
+    if cfg.causal and not cfg.causal_dynamic and Sq != Sk:
+        raise ValueError("causal attention needs Sq == Sk (or dynamic offsets)")
     if not 0 <= cfg.kv_len <= Sk:
         raise ValueError(f"kv_len {cfg.kv_len} out of range for Sk={Sk}")
     if cfg.quantized:
@@ -882,7 +947,8 @@ def attention_call(
             raise ValueError(f"{arg} is on device {val.device}, the attention on {q.device}")
     ext = dict(q_segments=_segment_ids(q_segments, B, Sq, "q_segments"),
                kv_segments=_segment_ids(kv_segments, B, Sk, "kv_segments"),
-               kv_segpos=_segment_ids(kv_segpos, B, Sk, "kv_segpos"), attn_mask=attn_mask)
+               kv_segpos=_segment_ids(kv_segpos, B, Sk, "kv_segpos"), attn_mask=attn_mask,
+               offsets=offsets, kv_true=kv_true_dyn)
     args = (q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean, q_scale, k_scale)
     if q.device.type == "cpu":
         out, lse, lmin = attention_plain(*args, **ext)
@@ -900,15 +966,9 @@ def _decode_call(q, k, v, k_scale, v_scale, v_mean, kv_true, offsets, cfg,
                  q_scale, k_head_scale, kn_max, q_segments, attn_mask):
     """``attention_call`` in the decode configuration (B11): at most
     ``DECODE_ROWS`` query rows, or any number of folded verify-window rows
-    (``causal_row_mod``), which the kernel takes 32 at a time; more rows
-    with dynamic offsets or length otherwise are the ring's configuration
-    (B10)."""
+    (``causal_row_mod``), which the kernel takes 32 at a time."""
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
-    if Sq > DECODE_ROWS and not cfg.causal_row_mod:
-        raise NotImplementedError(
-            f"dynamic offsets or lengths over {Sq} > {DECODE_ROWS} query rows arrive with "
-            "B10 (ring)")
     if Hq % Hk or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
     if any(x is not None for x in (q_scale, k_head_scale, kn_max, q_segments, attn_mask)):

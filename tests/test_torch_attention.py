@@ -139,7 +139,7 @@ def test_attention_matches_jax(name, causal, Hq, Hk, S, D):
     q, k, v = _inputs(Hq, Hk, S, D, seed=CASES.index((name, causal, Hq, Hk, S, D)))
     cfg = tatt.AttnConfig(out_dtype=torch.float32, emit_lse=True,
                           **_cfg_fields(name, causal, S, D))
-    assert tatt.config_name(cfg) == name
+    assert tatt.config_name(cfg, S) == name
     if name == "B4":
         kk, vv, kw = k, v, {}
     else:
@@ -252,7 +252,7 @@ def _run_jax2(cfg, q, k, v, kw, S):
 
 
 def _check_against_jax(name, cfg, q, k, v):
-    assert tatt.config_name(cfg) == name
+    assert tatt.config_name(cfg, q.shape[2]) == name
     xs = _args2(cfg, q, k, v)
     kw = xs[3]
     res = tatt.attention_call(*xs[:3], cfg=cfg, **kw)
@@ -340,10 +340,10 @@ def test_configs_outside_the_slice_raise(field, value):
     cfg = dataclasses.replace(base, **{field: value})
     expected = slice3.get(field, NotImplementedError)
     if isinstance(expected, str):
-        assert tatt.config_name(cfg) == expected
+        assert tatt.config_name(cfg, 1) == expected
         return
-    with pytest.raises(expected):
-        tatt.config_name(cfg)
+    with pytest.raises(expected):   # a decode-sized call: B11 takes no B2 base
+        tatt.config_name(cfg, 1)
 
 
 @pytest.mark.parametrize("fields", [
@@ -355,13 +355,13 @@ def test_configs_outside_the_slice_raise(field, value):
 def test_incoherent_configs_raise(fields):
     base = tatt.AttnConfig(**_cfg_fields("B2", False, 128, 64))
     with pytest.raises((ValueError, NotImplementedError)):
-        tatt.config_name(dataclasses.replace(base, **fields))
+        tatt.config_name(dataclasses.replace(base, **fields), 128)
 
 
 def test_attention_call_rejects_inputs_outside_the_slice():
     q, k, v = _inputs(2, 2, 128, 64, seed=5)
     cfg = tatt.AttnConfig(**_cfg_fields("B4", False, 128, 64))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="offsets"):   # offsets need causal_dynamic (B10)
         tatt.attention_call(q, k, v, offsets=torch.zeros(2, dtype=torch.int32), cfg=cfg)
     with pytest.raises(ValueError):   # a mask needs cfg.masked
         tatt.attention_call(q, k, v, attn_mask=torch.ones(1, 1, 128, 128), cfg=cfg)

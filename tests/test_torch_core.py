@@ -118,7 +118,7 @@ def test_adversarial_input_falls_back_online(blocks, online_name):
                           compute_dtype="bf16" if online_name == "B3-online" else "native",
                           softmax_mode="online", pv_via_bf16=True, emit_lse=False,
                           sm_scale=0.125)
-    assert tatt.config_name(cfg) == online_name
+    assert tatt.config_name(cfg, 256) == online_name
     inv127 = 1.0 / 127.0   # multiplied as f32, as the pipeline does
     online, _ = tatt.attention_call(
         q, k8, v8, v_scale=torch.where(vamax > 0, vamax * inv127, 1.0), v_mean=vm,

@@ -247,19 +247,20 @@ def test_errors_jax_raises_the_port_raises():
 
 
 def test_decode_configuration_routing():
-    """The decode fields at prefill sizes are the ring's (B10), not ported;
-    a decode call names its B11 launch key.  (Folded verify rows, with
+    """The decode fields at prefill sizes are the ring's (B10), which takes a
+    pre-quantized Q, so a decode-shaped call past 32 rows raises; a decode
+    call names its B11 launch key.  (Folded verify rows, with
     ``causal_row_mod``, may pass 32: the kernel walks them 32 at a time.)"""
     cfg = tatt.AttnConfig(quantized=True, pv_dtype="fp8", fuse_q_quant=True, kv_len_dynamic=True,
                           causal=True, causal_dynamic=True, causal_row_mod=4, kv_split=4)
-    assert tatt.config_name(cfg) == "B11-fp8-causal-mod"
+    assert tatt.config_name(cfg, 4) == "B11-fp8-causal-mod"
     cfg = dataclasses.replace(cfg, causal_row_mod=0)
     q = torch.zeros(1, 2, 33, 64)
     k = torch.zeros(1, 2, 64, 64, dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="B10"):
+    with pytest.raises(ValueError, match="B10"):
         tatt.attention_call(q, k, k, k_scale=torch.ones(1, 2, 1, 64), v_scale=torch.ones(1, 2, 1, 64),
                             kv_true_dyn=torch.tensor(64), offsets=torch.tensor([0, 0]),
                             cfg=cfg)
     with pytest.raises(NotImplementedError, match="B11"):
         tatt.config_name(tatt.AttnConfig(quantized=True, kv_len_dynamic=True,
-                                         fuse_q_quant=False))
+                                         fuse_q_quant=False), 1)

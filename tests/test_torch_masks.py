@@ -228,14 +228,14 @@ def test_attention_call_masks_match_jax(name, kind, causal):
     if name == "B4":
         ref = masked_oracle(q, k, v, mask, causal, sm_scale=0.125)
         assert calc_diff(out[:, :, live], ref[:, :, live]) < 2e-5
-    assert tatt.config_name(tcfg) == f"{name}-{kind}"
+    assert tatt.config_name(tcfg, S) == f"{name}-{kind}"
 
 
 def test_static_float_bias_without_fused_q_is_refused():
     cfg = tatt.AttnConfig(**{**_cfg_b("B2", False, "float"), "softmax_mode": "static",
                              "fuse_q_quant": False, "fold_k_scale": True})
     with pytest.raises(ValueError, match="fused"):
-        tatt.config_name(cfg)
+        tatt.config_name(cfg, 128)
     # the pipeline turns such a request into the online softmax, as JAX does
     q, k, v = qkv(2, 2, 128, 64, seed=31)
     bias = make_mask("float", 1, 128, seed=6)
@@ -269,7 +269,7 @@ def test_masked_configs_compose_with_dataclass_replace():
     for masked in ("bool", "float"):
         for pv in ("int8", "bf16"):
             cfg = dataclasses.replace(base, masked=masked, pv_dtype=pv, fuse_v_mean=pv == "int8")
-            assert tatt.config_name(cfg).endswith("-" + masked)
+            assert tatt.config_name(cfg, 128).endswith("-" + masked)
 
 
 def test_masks_on_another_device_are_refused():

@@ -119,7 +119,7 @@ def test_attention_call_window_matches_jax(quantized):
         kw = dict(k_head_scale=torch.where(amax > 0, amax / 127.0, 1.0),
                   v_scale=torch.where(vamax > 0, vamax / 127.0, 1.0), v_mean=vm)
     cfg = tatt.AttnConfig(**fields)
-    assert tatt.config_name(cfg) == ("B2-window" if quantized else "B4-window")
+    assert tatt.config_name(cfg, S) == ("B2-window" if quantized else "B4-window")
     out, lse = tatt.attention_call(q, k, v, cfg=cfg, **kw)[:2]
     jo, jl = jatt.attention_call(
         *(jnp.asarray(x.numpy()) for x in (q, k, v)),
