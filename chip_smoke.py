@@ -102,7 +102,27 @@ Phases (any failure exits non-zero):
    (``ring_sageattn``, ``ulysses_sageattn``, the ``parallel_dit_infer``
    example at CogVideoX1.5 width).  Then every kind of B10 launch these
    paths made (visible, diagonal, hidden chunks; all, part, none real)
-   against its plain version on sampled heads.
+   against its plain version on sampled heads;
+11. the last TPU kernels (A3, A4, B4-fp4; slice 7), each path counted on
+   its own with its exact launch counts.  11a, the two-pass K/V prep that
+   ``_sage_attention`` takes past ``ONEPASS_MAX_ELS``: HunyuanVideo joint
+   attention at 720p x 129 frames (1, 24, 119,056, 128; its published
+   transformer: hidden 3072, 24 heads, patch (1, 2, 2), 256 text tokens)
+   with ``sageattn`` (A3 = A4 = 1, A1 = A2 = 0), the H100 mode and flash,
+   3 trials of 3 calls each; its DiT cut to 2 blocks (random weights from
+   the seed) with int8 attention and flash; a Llama-3.1-8B causal prefill
+   at its full context (1, 32/8, 131,072, 128), timed once warm; A3 + A4
+   against A1 + A2 on the HunyuanVideo K and V (codes equal, both times).
+   11b, SageAttention3's FP4 simulation: ``sageattn3_blackwell`` at
+   CogVideoX1.5 and the HunyuanVideo shape against flash, and on a sampled
+   head against the S x S ``sageattn3``; the CogVideoX1.5-width DiT with
+   it as its attention (NHD -> HND in the smoke only).  Then A3 and A4
+   against their plain versions on every head, B4-fp4 on sampled heads and
+   rows (the plain version walks query-row chunks; at HunyuanVideo the
+   first, two middle and the last 64-row blocks) and causal at head dims
+   64 and 128, and the long B1 launches on sampled heads.  Phase 5 holds
+   A3/A4 at unaligned lengths, f32/f16 inputs and strided NHD views, and
+   the two-pass route end to end at a GQA shape against the one-pass call.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -122,6 +142,8 @@ SEED = 0
 TPU_KERNELS = {
     "A1": "sageattention_tpu/ops/quant_pallas.py:787",
     "A2": "sageattention_tpu/ops/quant_pallas.py:860",
+    "A3": "sageattention_tpu/ops/quant_pallas.py:636",
+    "A4": "sageattention_tpu/ops/quant_pallas.py:706",
     "A5": "sageattention_tpu/ops/quant_pallas.py:264",
     "A6": "sageattention_tpu/ops/quant_pallas.py:69",
     "B": "sageattention_tpu/ops/attention.py:251",
@@ -207,6 +229,9 @@ def main() -> int:
     kernels += run_training(torch, st, totals)
     torch.cuda.empty_cache()
     kernels += run_ring(torch, st, totals)
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        kernels += run_slice7(torch, st, totals)
     for e in kernels:   # launches over every counted path
         e["launches"] = totals.get(e["name"], 0)
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
@@ -234,16 +259,17 @@ def realistic_qkv(torch, B, Hq, Hk, S, D, seed):
 
 def counters():
     from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.ops import quant_fused as qf
     from sageattention_tpu_torch.ops import quant_kernels as qk
     from sageattention_tpu_torch.ops.attention import attention_call
     from sageattention_tpu_torch.ops.paged_decode import paged_decode_call
-    from sageattention_tpu_torch.ops.quant_fused import prep_k_onepass, prep_v_onepass
-    return prep_k_onepass, prep_v_onepass, qk, attention_call, paged_decode_call, tbwd.LAUNCHES
+    return qf, qk, attention_call, paged_decode_call, tbwd.LAUNCHES
 
 
 def reset_counts():
-    pk, pv, qk, att, pd, bwd = counters()
-    pk.launches = pv.launches = qk.channel_stats.launches = 0
+    qf, qk, att, pd, bwd = counters()
+    qf.prep_k_onepass.launches = qf.prep_v_onepass.launches = qk.channel_stats.launches = 0
+    qf.channel_stats2.launches = qf.quant_kv.launches = 0
     qk.quant_int8_groupwise.launches = qk.quant_int8_segmented.launches = 0
     for d in (qk.quant_int8_fixed.launches, att.launches, pd.launches, bwd):
         for name in d:
@@ -251,8 +277,10 @@ def reset_counts():
 
 
 def read_counts():
-    pk, pv, qk, att, pd, bwd = counters()
-    return {"A1": pk.launches, "A2": pv.launches, "A5": qk.channel_stats.launches,
+    qf, qk, att, pd, bwd = counters()
+    return {"A1": qf.prep_k_onepass.launches, "A2": qf.prep_v_onepass.launches,
+            "A3": qf.channel_stats2.launches, "A4": qf.quant_kv.launches,
+            "A5": qk.channel_stats.launches,
             "A6-group": qk.quant_int8_groupwise.launches,
             "A6-scalar": qk.quant_int8_fixed.launches["scalar"],
             "A6-channel": qk.quant_int8_fixed.launches["channel"],
@@ -440,6 +468,8 @@ def run(torch, st):
               f"adversarial x60 ({name}): equals the forced-online {fallback} result")
     for kname in KEYS:
         check(launches[kname] > 0, f"main path launched {kname} {launches[kname]} times")
+    check(launches["A3"] == launches["A4"] == 0,
+          "main path: CogVideoX1.5 and the Llama-70B prefill take the one-pass prep (A3 0, A4 0)")
 
     # ---------------- kernels against their plain versions ----------------
     kernels = kernel_checks(torch, inputs, short, adv_x["native"], launches)
@@ -2836,6 +2866,399 @@ def run_ring(torch, st, totals):
     return entries
 
 
+# ----------------------------------------- slice 7: the last TPU kernels ----
+
+SRC_LOWBIT = "sageattention_tpu_torch/csrc/attention_lowbit.cu"
+# HunyuanVideo's published transformer (hidden 3072, 24 heads, patch (1, 2, 2),
+# 16 latent channels, text_states_dim 4096, text_len 256) at 720 x 1280 and
+# 129 frames: 33 x 90 x 160 latents, S = 256 + 33 * 45 * 80 = 119,056 tokens;
+# its DiT cut to 2 blocks
+HUNYUAN_DIT = dict(hidden=3072, heads=24, depth=2, patch=2, in_channels=16, text_dim=4096,
+                   text_len=256, frames=33, height=90, width=160)
+HUNYUAN_SHAPE = (1, 24, 24, 119056, 128)     # B, Hq, Hk, S, D
+LLAMA_128K = (1, 32, 8, 131072, 128)         # Llama-3.1-8B at its full context
+STATS_TOL = 1e-6     # A3's stats vs plain: rtol, with this atol for means that cancel
+# sageattn3_blackwell vs the S x S sageattn3 on a sampled head
+# (tests/test_lowbit.py: the tiled simulation vs the jnp one)
+SA3_BAR = 5e-2
+# the CogVideoX1.5-width DiT of phase 3 (2 of 42 blocks), for the FP4 simulation
+COG_DIT = dict(hidden=3072, heads=48, depth=2, patch=2, in_channels=16, text_dim=4096,
+               text_len=226, frames=13, height=60, width=90)
+FP4_CAUSAL_S = 8192   # length of B4-fp4's causal checks, in full
+
+
+def trials_ms(torch, fn):
+    """Median ms per call over 3 trials of 3 calls (CUDA events), after one
+    warm call: for calls of about a second."""
+    from sageattention_tpu_torch.utils.testing import time_fn
+    return time_fn(fn, warmup=1, reps=3) * 1e3
+
+
+def two_pass_prep(torch, k, v, s_true):
+    """The pipeline's two-pass K/V prep: A3, the scales in torch, A4.
+    Returns the stats ``(km, k_amax, vm, v_amax)`` and A4's outputs."""
+    from sageattention_tpu_torch.core import _scale_of
+    from sageattention_tpu_torch.ops import quant_fused as qf
+    stats = qf.channel_stats2(k, v, s_true)
+    km, ka, vm, va = stats
+    ks = _scale_of(ka.amax(dim=3, keepdim=True), qf._INV127)
+    return stats, qf.quant_kv(k, ks, km, v, _scale_of(va, qf._INV127), vm, with_capmax=True,
+                              s_true=s_true)
+
+
+def row_blocks(S):
+    """Query rows of the sampled 64-row blocks: the first, two middle ones
+    and the last (cut by the pad boundary when 64 does not divide S)."""
+    last = (S - 1) // 64 * 64
+    starts = sorted({0, S // 3 // 64 * 64, 2 * S // 3 // 64 * 64, last})
+    return [r for r0 in starts for r in range(r0, min(r0 + 64, S))]
+
+
+def rows_oracle(torch, q, k, v, rows, causal):
+    """f32 attention of one head ``[S, D]`` on the card (TF32 off) for the
+    query ``rows`` only, against every key."""
+    from sageattention_tpu_torch.ops.reference import _no_tf32
+    idx = torch.tensor(rows, device=q.device)
+    with _no_tf32():
+        s = q[idx].float() @ k.float().T * q.shape[-1] ** -0.5
+        if causal:
+            s = s.masked_fill(torch.arange(k.shape[0], device=q.device)[None] > idx[:, None],
+                              float("-inf"))
+        return torch.softmax(s, dim=-1) @ v.float()
+
+
+def exact_counts(what, counts, want):
+    check(all(counts.get(k, 0) == n for k, n in want.items()),
+          f"{what}: launches " + ", ".join(f"{k} {counts.get(k, 0)}" for k in want)
+          + " (want " + ", ".join(f"{k} {n}" for k, n in want.items()) + ")")
+
+
+def flash_oracle_check(torch, what, flash, q, k, v, causal):
+    """Flash against the f32 oracle on the first and last q head, on the
+    sampled row blocks."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    rows = row_blocks(q.shape[2])
+    G = q.shape[1] // k.shape[1]
+    d = max(calc_diff(flash[0, h, rows], rows_oracle(torch, q[0, h], k[0, h // G], v[0, h // G],
+                                                     rows, causal))
+            for h in (0, q.shape[1] - 1))
+    check(d < ORACLE_BAR, f"{what}: flash vs f32 oracle on heads 0,{q.shape[1] - 1}, "
+                          f"{len(rows)} sampled rows: {d:.3e} < {ORACLE_BAR}")
+
+
+def long_b1_check(torch, what, args, kw, timer=trials_ms):
+    """A long B1 launch against its plain version on sampled heads at full
+    length (the plain version walks query-row chunks: no S x S matrix),
+    then its kernel time (by ``timer``: 3 trials of 3 launches)."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    sub, skw = slice_heads(args, kw)
+    a = attention_kernel(*sub, **skw)
+    b, plain_ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
+    kept, note = static_kept_rows(torch, a, b, sub[0].shape[2])
+    d = calc_diff(a[0][kept], b[0][kept])
+    err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
+    check(d < KERNEL_BAR, f"{what} B1 vs plain on {sub[0].shape[1]} q heads{note}: calc_diff "
+                          f"{d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
+    del a, b
+    ms = timer(torch, lambda: attention_kernel(*args, **kw))
+    q, k = args[0], args[1]
+    out = attention_kernel(*args, **kw)
+    moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
+                   *(x for x in kw.values() if isinstance(x, torch.Tensor)),
+                   *(x for x in out if x is not None))
+    bound = attn_bound(args[3], q, k, moved)
+    print(f"     {what} B1 at {tuple(q.shape)} Hk={k.shape[1]} causal={args[3].causal}: kernel "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms on {sub[0].shape[1]} q heads, bound "
+          f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+
+
+def hunyuan_phase(torch, st, totals):
+    """11a: HunyuanVideo 720p x 129 frames joint attention, (1, 24, 119,056,
+    128): ``sageattn`` (the two-pass prep: A3, A4, then B1), the H100 mode
+    and flash; A3 + A4 against A1 + A2 on its K and V."""
+    from sageattention_tpu_torch.ops import quant_fused as qf
+    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
+    B, H, Hk, S, D = HUNYUAN_SHAPE
+    q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 41)
+    what = f"HunyuanVideo ({B},{H},{S},{D})"
+    # name: (call, launch keys it must run, exact launch counts)
+    calls = {"sageattn": (lambda: st.sageattn(q, k, v), ("A3", "A4", "B1"),
+                          dict(A1=0, A2=0, A3=1, A4=1)),
+             "sageattn fp8 fine": (lambda: st.sageattn(q, k, v, pv_dtype="fp8",
+                                                       k_scale_mode="fine"),
+                                   ("A5", "A6-group", "B5-fp8"), dict(A1=0, A2=0, A3=0, A4=0)),
+             "flash": (lambda: st.flash_attention(q, k, v), ("B4",), dict(B4=1))}
+    outs, recs = {}, {}
+    for name, (fn, expect, want) in calls.items():
+        outs[name], recs[name] = counted_path(torch, f"{what} {name}", expect, {}, totals, fn)
+        exact_counts(f"{what} {name}", read_counts(), want)
+    ref = outs["flash"]
+    check(bool(torch.isfinite(outs["sageattn"]).all()) and outs["sageattn"].shape == q.shape,
+          f"{what} sageattn: finite output {tuple(outs['sageattn'].shape)}")
+    d = calc_diff(outs["sageattn"], ref)
+    check(1.0 - d >= COS_BAR, f"{what} sageattn vs flash: cossim {1.0 - d:.6f} >= {COS_BAR}")
+    d = calc_diff(outs["sageattn fp8 fine"], ref)
+    check(d < FP8_BAR, f"{what} H100 mode (pv fp8, fine K) vs flash: calc_diff {d:.3e} < "
+                       f"{FP8_BAR}")
+    flash_oracle_check(torch, what, ref, q, k, v, False)
+    del outs
+    for name, (fn, _, _) in calls.items():
+        print(f"     {what}: {name} {trials_ms(torch, fn):.3f} ms (3 trials of 3 calls)",
+              flush=True)
+    long_b1_check(torch, what, *recs["sageattn"]["B1"])
+    del recs
+
+    # A3 + A4 against A1 + A2 on the same K and V: JAX's route's evidence
+    (km, ka, vm, va), two = two_pass_prep(torch, k, v, S)
+    k1 = qf.prep_k_onepass(k, S, with_capmax=True)
+    v1 = qf.prep_v_onepass(v, S)
+    bad_k = int((two[0] != k1[0]).sum())
+    bad_v = int((two[1] != v1[0]).sum())
+    same_stats = (torch.equal(km, k1[1]) and torch.equal(ka.amax(3, keepdim=True), k1[2])
+                  and torch.equal(vm, v1[1]) and torch.equal(va, v1[2])
+                  and torch.equal(two[2], k1[3]))
+    check(bad_k == bad_v == 0 and same_stats,
+          f"{what}: A3 + A4 vs A1 + A2: {bad_k} K and {bad_v} V codes differ, stats and capmax "
+          f"{'equal' if same_stats else 'DIFFER'}")
+    two_pass = lambda: two_pass_prep(torch, k, v, S)  # noqa: E731
+    one_pass = lambda: (qf.prep_k_onepass(k, S, with_capmax=True),  # noqa: E731
+                        qf.prep_v_onepass(v, S))
+    t = {}
+    for _ in range(2):   # in turns: one, two, two, one
+        for name, fn in (("one", one_pass), ("two", two_pass)) if not t else (
+                ("two", two_pass), ("one", one_pass)):
+            t.setdefault(name, []).append(time_fn(fn, warmup=2, reps=10) * 1e3)
+    print(f"     {what} K/V prep: two-pass (A3 + glue + A4) {min(t['two']):.3f} ms, one-pass "
+          f"(A1 + A2) {min(t['one']):.3f} ms (each the best of 2 medians of 10)", flush=True)
+    return q, k, v
+
+
+def hunyuan_dit_phase(torch, st, totals):
+    """11a: the HunyuanVideo-width DiT (2 blocks, random weights from the
+    seed) at 119,056 tokens, with int8 attention and with flash."""
+    from sageattention_tpu_torch.models import DiT, DiTConfig, sage_dot_product_attention
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    cfg = DiTConfig(**HUNYUAN_DIT, zero_init_gates=False)
+    model = DiT(cfg, device="cuda").init_weights(SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    lat = torch.randn(1, cfg.frames, cfg.height, cfg.width, cfg.in_channels, generator=g,
+                      device="cuda")
+    txt = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device="cuda")
+    tt = torch.full((1,), 500, device="cuda", dtype=torch.int32)
+    S = cfg.text_len + cfg.video_tokens
+    outs, walls = {}, {}
+    for mode, fn, expect, want in (
+            ("int8", sage_dot_product_attention, ("A3", "A4", "B1"), dict(A1=0, A2=0, A3=2, A4=2)),
+            ("flash", functools.partial(st.flash_attention, tensor_layout="NHD"), ("B4",),
+             dict(B4=2))):
+        for b in model.blocks:
+            b.attn_fn = fn
+        outs[mode], _ = counted_path(torch, f"HunyuanVideo DiT {mode}", expect, {}, totals,
+                                     lambda: model(lat, txt, tt))
+        exact_counts(f"HunyuanVideo DiT {mode}", read_counts(), want)
+        walls[mode] = time_once(torch, lambda: model(lat, txt, tt))
+    for mode, out in outs.items():
+        check(bool(torch.isfinite(out.float()).all()) and out.shape == lat.shape,
+              f"HunyuanVideo DiT {mode} (2 blocks, S={S}): finite output {tuple(out.shape)}")
+    d = calc_diff(outs["int8"], outs["flash"])
+    check(1.0 - d >= COS_BAR, f"HunyuanVideo DiT int8 vs flash: cossim {1.0 - d:.6f} >= {COS_BAR}")
+    print("     HunyuanVideo DiT forward (2 blocks, warm): " + ", ".join(
+        f"{m} {ms:.1f} ms" for m, ms in walls.items()), flush=True)
+
+
+def llama_128k_phase(torch, st, totals):
+    """11a: a Llama-3.1-8B causal prefill at its full context, (1, 32/8,
+    131,072, 128): the two-pass prep with GQA, causal, and no pad rows."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    B, H, Hk, S, D = LLAMA_128K
+    q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 43)
+    what = f"Llama-3.1-8B ({B},{H}/{Hk},{S},{D}) causal"
+    calls = {"sageattn": (lambda: st.sageattn(q, k, v, is_causal=True), ("A3", "A4", "B1"),
+                          dict(A1=0, A2=0, A3=1, A4=1)),
+             "flash": (lambda: st.flash_attention(q, k, v, is_causal=True), ("B4",), dict(B4=1))}
+    outs, recs = {}, {}
+    for name, (fn, expect, want) in calls.items():
+        outs[name], recs[name] = counted_path(torch, f"{what} {name}", expect, {}, totals, fn)
+        exact_counts(f"{what} {name}", read_counts(), want)
+    check(bool(torch.isfinite(outs["sageattn"]).all()), f"{what} sageattn: finite output")
+    d = calc_diff(outs["sageattn"], outs["flash"])
+    check(1.0 - d >= COS_BAR, f"{what} sageattn vs flash: cossim {1.0 - d:.6f} >= {COS_BAR}")
+    flash_oracle_check(torch, what, outs["flash"], q, k, v, True)
+    del outs
+    for name, (fn, _, _) in calls.items():
+        print(f"     {what}: {name} {time_once(torch, fn):.3f} ms (one warm call)", flush=True)
+    long_b1_check(torch, what, *recs["sageattn"]["B1"], timer=time_once)
+
+
+def fp4_phase(torch, st, totals):
+    """11b: SageAttention3's FP4 simulation, ``sageattn3_blackwell``, at
+    CogVideoX1.5 (1, 48, 17,776, 64) and at the HunyuanVideo shape, against
+    flash and, on a sampled head, the S x S ``sageattn3``; the CogVideoX1.5-
+    width DiT (2 blocks) with it as its attention.  Returns the launches'
+    inputs by shape."""
+    from sageattention_tpu_torch.models import DiT, DiTConfig
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    recs = {}
+    for label, (B, H, Hk, S, D), seed in (("CogVideoX1.5", COG_SHAPE, SEED + 51),
+                                          ("HunyuanVideo", HUNYUAN_SHAPE, SEED + 52)):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, seed)
+        what = f"{label} ({B},{H},{S},{D}) sageattn3_blackwell"
+        out, recs[label] = counted_path(torch, what, ("B4-fp4",), {}, totals,
+                                        lambda: st.sageattn3_blackwell(q, k, v))
+        exact_counts(what, read_counts(), {"B4-fp4": 1, "B4": 0})
+        check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+              f"{what}: finite output {tuple(out.shape)}")
+        d = calc_diff(out, st.flash_attention(q, k, v))
+        print(f"     {what}: calc_diff vs flash {d:.3e}", flush=True)
+        if label == "CogVideoX1.5":
+            ref = st.sageattn3(q[:, :1], k[:, :1], v[:, :1])
+            d = calc_diff(out[:, :1], ref)
+            check(d < SA3_BAR, f"{what} vs the S x S sageattn3 on head 0: calc_diff {d:.3e} "
+                               f"< {SA3_BAR}")
+            del ref
+        del out
+        call = lambda: st.sageattn3_blackwell(q, k, v)  # noqa: E731
+        t, how = ((trials_ms(torch, call), "3 trials of 3 calls") if label == "CogVideoX1.5"
+                  else (time_once(torch, call), "one warm call"))
+        print(f"     {what}: {t:.3f} ms a call ({how}; the FP4 quantizers in plain torch and "
+              "one B4-fp4 launch)", flush=True)
+        del q, k, v
+
+    cfg = DiTConfig(**COG_DIT, zero_init_gates=False)
+    model = DiT(cfg, device="cuda").init_weights(SEED)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    lat = torch.randn(1, cfg.frames, cfg.height, cfg.width, cfg.in_channels, generator=g,
+                      device="cuda")
+    txt = torch.randn(1, cfg.text_len, cfg.text_dim, generator=g, device="cuda")
+    tt = torch.full((1,), 500, device="cuda", dtype=torch.int32)
+
+    def sa3_nhd(q, k, v, *a, **kw):   # the DiT calls NHD; sageattn3 takes HND
+        return st.sageattn3_blackwell(q.transpose(1, 2), k.transpose(1, 2),
+                                      v.transpose(1, 2)).transpose(1, 2)
+
+    outs = {}
+    for mode, fn in (("fp4", sa3_nhd),
+                     ("flash", functools.partial(st.flash_attention, tensor_layout="NHD"))):
+        for b in model.blocks:
+            b.attn_fn = fn
+        outs[mode], _ = counted_path(torch, f"CogVideoX1.5 DiT {mode}",
+                                     ("B4-fp4",) if mode == "fp4" else ("B4",), {}, totals,
+                                     lambda: model(lat, txt, tt))
+    check(bool(torch.isfinite(outs["fp4"].float()).all()) and outs["fp4"].shape == lat.shape,
+          f"CogVideoX1.5 DiT with sageattn3_blackwell: finite output {tuple(lat.shape)}")
+    print(f"     CogVideoX1.5 DiT, sageattn3_blackwell vs flash attention: calc_diff "
+          f"{calc_diff(outs['fp4'], outs['flash']):.3e}", flush=True)
+    return recs
+
+
+def fp4_kernel_entry(torch, recs, launches):
+    """B4-fp4 against its plain version: two heads at CogVideoX1.5 in full
+    (the plain version walks query-row chunks), the sampled row blocks of
+    one head at the HunyuanVideo shape (the launch's other rows are
+    independent of them), and causal at head dims 64 and 128 in full; its
+    time at both main-path shapes."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
+    cases, errs = [], []
+    args, kw = recs["CogVideoX1.5"]["B4-fp4"]
+    cases.append(("CogVideoX1.5, heads 0-1", tuple(x[:, :2] for x in args[:3]) + tuple(args[3:])))
+    hargs, _ = recs["HunyuanVideo"]["B4-fp4"]
+    idx = torch.tensor(row_blocks(hargs[0].shape[2]), device="cuda")
+    sub = (hargs[0][:, :1, idx], hargs[1][:, :1], hargs[2][:, :1])
+    cases.append((f"HunyuanVideo, head 0, {len(idx)} sampled rows", sub + tuple(hargs[3:])))
+    for D in (64, 128):
+        q, k, v = realistic_qkv(torch, 1, 4, 4, FP4_CAUSAL_S, D, SEED + 53 + D)
+        cfg = dataclasses.replace(args[3], causal=True, kv_len=FP4_CAUSAL_S, sm_scale=D ** -0.5)
+        cases.append((f"causal (1,4,{FP4_CAUSAL_S},{D})", (q, k, v, cfg) + tuple(args[4:])))
+    plain_ms = []
+    for what, a in cases:
+        x = attention_kernel(*a, **kw)
+        y, ms = timed_call(torch, lambda: attention_plain(*a, **kw))
+        plain_ms.append(ms)
+        d = calc_diff(x[0], y[0])
+        err = float((x[0].float() - y[0].float()).abs().max())
+        check(d < KERNEL_BAR, f"B4-fp4 vs plain, {what}: calc_diff {d:.3e} < {KERNEL_BAR}, "
+                              f"max_abs {err:.3e}")
+        errs.append(err)
+    timed = {}
+    for label, timer in (("CogVideoX1.5", lambda fn: time_fn(fn, warmup=2, reps=10) * 1e3),
+                         ("HunyuanVideo", lambda fn: time_once(torch, fn))):
+        a = recs[label]["B4-fp4"][0]
+        ms = timer(lambda: attention_kernel(*a, **kw))
+        bound = attn_bound(a[3], a[0], a[1], nbytes(*a[:3], attention_kernel(*a, **kw)[0]))
+        timed[label] = ms, bound
+        print(f"     B4-fp4 at {label} {tuple(a[0].shape)}: kernel {ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+    ms, bound = timed["CogVideoX1.5"]
+    return {"name": "B4-fp4", "route": "cuda", "source": SRC_LOWBIT, "replaces": TPU_KERNELS["B"],
+            "launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms[0],
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "shape": f"{tuple(args[0].shape)}; plain on 2 heads"}
+
+
+def prep2_entries(torch, q, k, v, totals):
+    """A3 and A4 against their plain versions on every head at the
+    HunyuanVideo shape, with their times and bytes bounds."""
+    from sageattention_tpu_torch.ops import quant_fused as qf
+    from sageattention_tpu_torch.utils.testing import time_fn
+    from sageattention_tpu_torch.core import _scale_of
+    S = k.shape[2]
+    shape = str(tuple(k.shape))
+    a = qf.channel_stats2(k, v, S)
+    b, plain3 = timed_call(torch, lambda: qf.channel_stats2_plain(k, v, S))
+    ok = all(torch.allclose(x, y, rtol=STATS_TOL, atol=STATS_TOL) for x, y in zip(a, b))
+    err3 = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    check(ok, f"A3 vs plain at {shape}: stats within rtol {STATS_TOL} (max_abs {err3:.3e})")
+    args = (k, _scale_of(a[1].amax(dim=3, keepdim=True), qf._INV127), a[0], v,
+            _scale_of(a[3], qf._INV127), a[2])
+    x = qf.quant_kv(*args, with_capmax=True, s_true=S)
+    y, plain4 = timed_call(torch, lambda: qf.quant_kv_plain(*args, with_capmax=True, s_true=S))
+    bad = int((x[0] != y[0]).sum()) + int((x[1] != y[1]).sum())
+    cap_ok = torch.allclose(x[2], y[2], rtol=STATS_TOL, atol=0)
+    check(bad == 0 and cap_ok, f"A4 vs plain at {shape}: {bad} codes differ, capmax within "
+                               f"rtol {STATS_TOL}")
+    err4 = float((x[2] - y[2]).abs().max())
+    del b, y
+    ms3 = time_fn(lambda: qf.channel_stats2(k, v, S), warmup=3, reps=20) * 1e3
+    ms4 = time_fn(lambda: qf.quant_kv(*args, with_capmax=True, s_true=S), warmup=3,
+                  reps=20) * 1e3
+    out = []
+    for name, err, ms, pms, moved in (
+            ("A3", err3, ms3, plain3, nbytes(k, v, *a)),
+            ("A4", err4, ms4, plain4, nbytes(*args, *x))):
+        bound = bytes_bound(moved)
+        print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, plain {pms:.3f} ms, "
+              f"bound {bound[0]:.3f} ms ({bound[1]}) at {shape} K and V", flush=True)
+        out.append({"name": name, "route": "cuda", "source": SRC_PREP,
+                    "replaces": TPU_KERNELS[name], "launches": totals.get(name, 0),
+                    "max_abs_err": err, "ms": ms, "plain_ms": pms, "bound_ms": bound[0],
+                    "bound_by": bound[1], "library_ms": None, "shape": shape + " K and V"})
+    return out
+
+
+def run_slice7(torch, st, totals):
+    """Phase 11, the paths of slice 7 (each counted on its own): 11a the
+    long sequences whose K/V prep takes the two-pass kernels (A3, A4), 11b
+    SageAttention3's FP4 simulation (B4-fp4); then A3, A4 and B4-fp4
+    against their plain versions."""
+    t0 = time.time()
+    q, k, v = hunyuan_phase(torch, st, totals)
+    entries = prep2_entries(torch, q, k, v, totals)
+    del q, k, v
+    torch.cuda.empty_cache()
+    hunyuan_dit_phase(torch, st, totals)
+    torch.cuda.empty_cache()
+    llama_128k_phase(torch, st, totals)
+    torch.cuda.empty_cache()
+    recs = fp4_phase(torch, st, totals)
+    entries.append(fp4_kernel_entry(torch, recs, totals.get("B4-fp4", 0)))
+    del recs
+    torch.cuda.empty_cache()
+    print(f"     phase 11: {time.time() - t0:.1f} s", flush=True)
+    return entries
+
+
 # ---------------------------------------------------------------- configs ----
 
 def attn_cfg(torch, name, D, causal):
@@ -2996,6 +3419,19 @@ def edge_checks(torch):
                       and all(torch.allclose(u, w, rtol=1e-5, atol=1e-6)
                               for u, w in zip(a[1:], b[1:])))
                 check(ok, f"{name} edge {tag}")
+            y = (rn(*shape) * 1.5).to(dtype)
+            y = nhd_view(y) if nhd else y
+            a = qf.channel_stats2(x, y, s_true)
+            ok = all(torch.allclose(u, w, rtol=STATS_TOL, atol=STATS_TOL)
+                     for u, w in zip(a, qf.channel_stats2_plain(x, y, s_true)))
+            check(ok, f"A3 edge {tag}")
+            ka = a[1].amax(dim=3, keepdim=True)
+            args = (x, torch.where(ka > 0, ka / 127.0, 1.0), a[0], y,
+                    torch.where(a[3] > 0, a[3] / 127.0, 1.0), a[2])
+            a, b = (qf.quant_kv(*args, with_capmax=True, s_true=s_true),
+                    qf.quant_kv_plain(*args, with_capmax=True, s_true=s_true))
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                  and torch.allclose(a[2], b[2], rtol=STATS_TOL, atol=0), f"A4 edge {tag}")
             km, kamax = qk.channel_stats(x, s_true)
             ok = all(torch.allclose(u, w, rtol=1e-5, atol=1e-6)
                      for u, w in zip((km, kamax), qk.channel_stats_plain(x, s_true)))
@@ -3021,6 +3457,25 @@ def edge_checks(torch):
             same, worst = _codes_ok(torch, qk.quant_int8_fixed(x, cs, sub=km),
                                     qk.quant_int8_plain(x, "channel", sub=km, scale=cs)[0])
             check(same >= 0.999 and worst <= 1, f"A6-channel edge {tag}")
+    # the two-pass route end to end on NHD views at a GQA shape: with the
+    # one-pass limit at 0 the call equals the one-pass call bit for bit (A3
+    # and A1 finish the same partials in the same order; A4 and A1 round
+    # the same products)
+    import sageattention_tpu_torch as st
+    q, k, v = rn(1, 1000, 4, 128), rn(1, 1000, 2, 128) + 1.0, rn(1, 1000, 2, 128)
+    for causal in (False, True):
+        one = st.sageattn(q, k, v, tensor_layout="NHD", is_causal=causal)
+        real, qf.ONEPASS_MAX_ELS = qf.ONEPASS_MAX_ELS, 0
+        try:
+            before = read_counts()
+            two = st.sageattn(q, k, v, tensor_layout="NHD", is_causal=causal)
+            after = read_counts()
+        finally:
+            qf.ONEPASS_MAX_ELS = real
+        ran = {n: after[n] - before[n] for n in ("A1", "A2", "A3", "A4")}
+        check(torch.equal(one, two) and ran == dict(A1=0, A2=0, A3=1, A4=1),
+              f"two-pass route (1, 1000, 4/2, 128) NHD causal={causal}: equals the one-pass "
+              f"call, launches {ran}")
     for Hq, Hk, S, D, causal, dtype, nhd in ((4, 2, 333, 64, False, torch.bfloat16, False),
                                              (2, 2, 300, 128, True, torch.float32, False),
                                              (4, 1, 1000, 128, False, torch.float16, True)):

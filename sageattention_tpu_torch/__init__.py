@@ -20,6 +20,7 @@ from .core import (
 from .decode import (KVCache, decode_bucket, kv_cache_append, kv_cache_init, kv_cache_trim,
                      sageattn_decode)
 from .dispatch import detect
+from .ops.lowbit import sageattn3, sageattn3_blackwell, sageattn3_tiled
 from .paged import (PageAllocator, PagedKVCache, build_table, paged_append,
                     paged_decode_block_staged, paged_decode_step_deferred, paged_insert,
                     paged_prefill, paged_trim, pages_bucket_for, sageattn_decode_paged)
@@ -35,4 +36,5 @@ __all__ = ["sageattn", "sageattn_qk_int8_pv_bf16", "sageattn_qk_int8_pv_int8",
            "kv_cache_trim", "decode_bucket", "sageattn_decode", "PagedKVCache", "PageAllocator",
            "build_table", "paged_prefill", "paged_insert", "paged_append", "paged_trim",
            "pages_bucket_for", "paged_decode_step_deferred", "paged_decode_block_staged",
-           "sageattn_decode_paged", "Admission", "PrefixCachingAllocator"]
+           "sageattn_decode_paged", "Admission", "PrefixCachingAllocator", "sageattn3",
+           "sageattn3_tiled", "sageattn3_blackwell"]

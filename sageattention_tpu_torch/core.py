@@ -10,7 +10,10 @@ quantizer is a kernel, and a CPU tensor runs each kernel's plain version).
    int8-storage / bf16-compute kernel, which forces per-head K scales; fp8
    PV keeps native compute there, as JAX's 512 tile floor does);
 2. K and V prep.  The flagship combination (smooth_k, smooth_v, int8 V,
-   per-head K scale) takes the one-pass kernels A1/A2.  Otherwise A5
+   per-head K scale) takes the one-pass kernels A1/A2 while the padded
+   (Sk_pad, D) slice holds at most ``ONEPASS_MAX_ELS`` elements, as JAX
+   routes it, and past that the two-pass pair: A3 for K's and V's channel
+   stats, torch glue for the scales, A4 for both quantizations.  Otherwise A5
    gives the K mean (smooth_k) and V's channel stats, and A6 quantizes:
    K at one scale per head (scalar mode) or per 16-row group (``"fine"``,
    with ``sub = km``), int8 V per channel;
@@ -65,6 +68,7 @@ import torch
 from . import dispatch
 from .ops import quant as quant_ops
 from .ops.attention import AttnConfig, _per_q_head, attention_call
+from .ops import quant_fused
 from .ops.quant_fused import _INV127, prep_k_onepass, prep_v_onepass
 from .ops.quant_kernels import channel_stats, quant_int8_fixed, quant_int8_groupwise
 from .ops.reference import _no_tf32
@@ -118,6 +122,14 @@ def _choose_blocks(sq: int, sk: int, quantized: bool,
         bk = _pick_block(2048, sk)
         bki = min(256, bk)
     return bq, bk, bki
+
+
+def onepass_kv(Sk_pad: int, D: int) -> bool:
+    """The JAX package's route for the merged K/V prep: the one-pass kernels
+    (A1, A2) while a padded slice holds at most ``ONEPASS_MAX_ELS``
+    elements, the two-pass pair (A3, A4) past it.  The limit is read at
+    call time."""
+    return Sk_pad * D <= quant_fused.ONEPASS_MAX_ELS
 
 
 def _finish_lse(lse_b2, lse_correction):
@@ -329,12 +341,19 @@ def _sage_attention(
     # ---- K and V prep ----
     km = vm = v_amax = k_capmax = k_scale = ks_sc = None
     merged = smooth_k and smooth_v and pv_dtype == "int8" and head
-    if merged:
+    if merged and onepass_kv(Sk_pad, k.shape[3]):
         res = prep_k_onepass(k, Sk_true, with_capmax=static)
         k_i8, km, k_head_amax = res[:3]
         k_capmax = res[3] if static else None
         ks_sc = _scale_of(k_head_amax, _INV127)
         v_in, vm, v_amax = prep_v_onepass(v, Sk_true)
+    elif merged:
+        km, k_amax_ch, vm, v_amax = quant_fused.channel_stats2(k, v, Sk_true)
+        ks_sc = _scale_of(k_amax_ch.amax(dim=3, keepdim=True), _INV127)
+        res = quant_fused.quant_kv(k, ks_sc, km, v, _scale_of(v_amax, _INV127), vm,
+                                   with_capmax=static, s_true=Sk_true)
+        k_i8, v_in = res[:2]
+        k_capmax = res[2] if static else None
     else:
         if smooth_k:
             km, k_amax_ch = channel_stats(k, Sk_true)

@@ -68,17 +68,19 @@ __device__ __forceinline__ void atomic_max_nonneg(float* addr, float v) {
 constexpr int kStatThreads = 256;
 constexpr int kStatRows = 256;  // rows of one slice per stats block
 
-// Every (slice, kStatRows-row chunk) block writes its partial per-channel
-// sum / max / min over the true rows r < s_true to
-// p*[(bh * gridDim.x + chunk) * D + c].  A second pass reduces the partials
-// of a slice in a fixed order, so every reader agrees bit for bit.
+// Block (split, bh) of a grid of nsplit x B*H writes its partial
+// per-channel sum / max / min over the true rows r < s_true of its
+// kStatRows-row chunk to p*[(bh * nsplit + split) * D + c].  A second pass
+// reduces the partials of a slice in a fixed order, so every reader agrees
+// bit for bit.
 template <typename T>
-__global__ void __launch_bounds__(kStatThreads)
-stats_partial_kernel(const T* __restrict__ x, long long sb, long long sh, long long ss,
-                     int H, int s_true, int D, float* __restrict__ psum,
-                     float* __restrict__ pmax, float* __restrict__ pmin) {
+__device__ __forceinline__ void stats_partial_body(const T* __restrict__ x, long long sb,
+                                                   long long sh, long long ss, int H,
+                                                   int s_true, int D, int split, int nsplit,
+                                                   int bh, float* __restrict__ psum,
+                                                   float* __restrict__ pmax,
+                                                   float* __restrict__ pmin) {
   __shared__ float red[3][kStatThreads * 8];
-  const int bh = blockIdx.y, split = blockIdx.x, nsplit = gridDim.x;
   const int b = bh / H, h = bh % H;
   const int cpr = D / 8, rpi = kStatThreads / cpr;
   const int tr = threadIdx.x / cpr, cg = threadIdx.x % cpr;
@@ -118,6 +120,16 @@ stats_partial_kernel(const T* __restrict__ x, long long sb, long long sh, long l
     pmax[o] = hi;
     pmin[o] = lo;
   }
+}
+
+// One tensor's partials: the grid is (nsplit, B*H).
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+stats_partial_kernel(const T* __restrict__ x, long long sb, long long sh, long long ss,
+                     int H, int s_true, int D, float* __restrict__ psum,
+                     float* __restrict__ pmax, float* __restrict__ pmin) {
+  stats_partial_body<T>(x, sb, sh, ss, H, s_true, D, blockIdx.x, gridDim.x, blockIdx.y, psum,
+                        pmax, pmin);
 }
 
 // Channel c of slice bh from its nsplit partials, in a fixed order:

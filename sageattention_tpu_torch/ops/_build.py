@@ -27,7 +27,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "attention_ring", "decode", "backward")
+           "attention_ring", "attention_lowbit", "decode", "backward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -58,6 +58,10 @@ _BWD_ARGS = [_I] * 3 + [_P] * 9 + [_LL] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_F] 
 SIGNATURES = {
     "sage_prep_kv": ("prep_kv", [_I, _I, _I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
+    "sage_stats2": ("prep_kv", [_I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _I, _I, _I, _I, _F]
+                    + [_P] * 6),
+    "sage_quant_kv": ("prep_kv", [_I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL] + [_I] * 5
+                      + [_P] * 8),
     "sage_channel_stats": ("quant", [_I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _F] + [_P] * 6),
     "sage_quant_int8": ("quant", [_I, _I, _I, _P, _LL, _LL, _LL] + [_I] * 6
                         + [_F, _I] + [_P] * 5 + [_I] + [_P] * 4 + [_I, _I, _P]),
@@ -66,6 +70,7 @@ SIGNATURES = {
     "sage_attn_fwd_ext": ("attention_ext", _ATTN_EXT_ARGS),
     "sage_attn_fwd_q8_ext": ("attention_q8_ext", _ATTN_EXT_ARGS),
     "sage_attn_fwd_ring": ("attention_ring", _ATTN_RING_ARGS),
+    "sage_attn_fwd_fp4": ("attention_lowbit", _ATTN_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
 }
@@ -76,6 +81,7 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_ext": "sage_attn_ext_error_string",
                  "attention_q8_ext": "sage_attn_q8_ext_error_string",
                  "attention_ring": "sage_attn_ring_error_string",
+                 "attention_lowbit": "sage_attn_lowbit_error_string",
                  "decode": "sage_decode_error_string",
                  "backward": "sage_bwd_error_string"}
 

@@ -8,6 +8,10 @@ configurations, by their launch key (``config_name``):
                  static, and its online fallback (pv_via_bf16)
   B3 / B3-online fused Q with bf16 compute (short sequences), int8 V
   B4             quantized=False: the bf16 flash baseline
+  B4-fp4         the same with ``p_sim_fp4``: each 64-column P tile rounded
+                 to e2m1 at (its row max) / 6 under the online softmax, l
+                 summing the rounded P (``csrc/attention_lowbit.cu``; the
+                 SageAttention3 simulation of ``ops/lowbit.py``)
   B5-int8        int8 P under the online softmax, int8 V (either Q source)
   B5-fp8(-fusedq) e4m3 P under the online softmax, e4m3 V; a pre-quantized
                  Q (``q_scale``), or a fused one
@@ -121,7 +125,6 @@ class AttnConfig:
                 or self.pv_via_bf16)
 
 
-_LATER = {"p_sim_fp4": "the low-bit simulation (ops/lowbit.py, ROADMAP queue 1)"}
 DECODE_ROWS = 32            # query rows of one decode block (JAX's _BQ)
 DECODE_SPLIT_BLOCKS = 264   # decode blocks to aim for: two on each of the H100's 132 SMs
 DECODE_MAX_SPLITS = 32
@@ -197,12 +200,31 @@ def _check_options(cfg: AttnConfig) -> None:
                          "post-hoc safety check (fuse_q_quant)")
 
 
+def _check_fp4(cfg: AttnConfig) -> None:
+    """``p_sim_fp4`` (B4-fp4, the SageAttention3 simulation of
+    ``ops/lowbit.py``) runs on the bf16 flash base only, under the online
+    softmax, causal or not, with a static ``kv_len``.  Every other base
+    raises: JAX asserts against the static softmax and ``kv_split``, and
+    silently ignores the flag on an int8 or e4m3 P; the port refuses those
+    too, rather than run something other than what was asked."""
+    if cfg.quantized:
+        raise ValueError("p_sim_fp4 rounds the bf16 P of the flash base (quantized=False)")
+    if cfg.softmax_mode != "online":
+        raise ValueError("p_sim_fp4 needs the online softmax: P is rounded against its "
+                         "tile's row max")
+    if cfg.kv_split != 1 or cfg.causal_row_mod or cfg.kv_len_dynamic or cfg.causal_dynamic:
+        raise ValueError("p_sim_fp4 composes with no kv_split, folded rows or dynamic "
+                         "lengths and offsets")
+    if _extended(cfg):
+        raise ValueError("p_sim_fp4 composes with no masks, segments, window or row K scales")
+
+
 def _base_name(cfg: AttnConfig) -> str:
     static = cfg.softmax_mode == "static"
     if not cfg.quantized:
         if static:
             raise ValueError("static softmax needs the quantized payload bounds")
-        return "B4"
+        return "B4-fp4" if cfg.p_sim_fp4 else "B4"
     if cfg.pv_dtype not in ("int8", "fp8", "bf16"):
         raise ValueError(f"unknown pv_dtype {cfg.pv_dtype!r}")
     if cfg.compute_dtype not in ("native", "bf16"):
@@ -230,13 +252,10 @@ def _base_name(cfg: AttnConfig) -> str:
 
 def config_name(cfg: AttnConfig, rows: int) -> str:
     """The port's launch key for ``cfg`` over ``rows`` query rows: the base configuration (B1-B6) and the suffixes of
-    its B7-B9 options, B10's prefix and suffixes, or B11's key; raises
-    ``NotImplementedError`` naming the later slice for options not ported
-    yet."""
-    for field, slice_ in _LATER.items():
-        val = getattr(cfg, field)
-        if val:
-            raise NotImplementedError(f"AttnConfig.{field}={val!r} arrives with {slice_}")
+    its B7-B9 options, B10's prefix and suffixes, B11's key, or B4-fp4;
+    raises ``ValueError`` for a combination the kernel does not take."""
+    if cfg.p_sim_fp4:
+        _check_fp4(cfg)
     if cfg.layout != "HND":
         raise ValueError("attention_call operates in HND; transpose first")
     if is_decode(cfg, rows):
@@ -291,6 +310,7 @@ def _launch_keys() -> tuple:
         for dyn_causal, dyn_len in ((True, False), (False, True), (True, True)):
             keys.setdefault(config_name(dataclasses.replace(
                 cfg, causal_dynamic=dyn_causal, kv_len_dynamic=dyn_len), Q_TILE))
+    keys.setdefault(config_name(AttnConfig(quantized=False, p_sim_fp4=True), Q_TILE))
     for pv, causal, mod in itertools.product(("int8", "fp8", "bf16"), (False, True), (0, 2)):
         if mod and not causal:
             continue
@@ -354,10 +374,32 @@ def _v_operand(v, pv_dtype):
     return v.to(torch.bfloat16).float()
 
 
+_E2M1_GRID = (0.0, 0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0)
+_E2M1_MIDS = (0.25, 0.75, 1.25, 1.75, 2.5, 3.5, 5.0)
+
+
+def _round_e2m1_tile(p, pmax):
+    """``p`` rounded onto the e2m1 grid {0, .5, 1, 1.5, 2, 3, 4, 6} at scale
+    ``pmax / 6`` per row (the JAX kernel's ``_round_e2m1_tile``): strict
+    ``>`` at each midpoint, so a tie rounds down; ``p >= 0``."""
+    scale = torch.clamp_min(pmax, 1e-30) * _F32(1.0 / 6.0)
+    x = p / scale
+    q = torch.zeros_like(x)
+    for g, mid in zip(_E2M1_GRID[1:], _E2M1_MIDS):
+        q = torch.where(x > mid, g, q)
+    return q * scale
+
+
 def _p_tile(st, m_next, p_mode):
-    """P of one online kv tile and its contribution to l."""
+    """P of one online kv tile and its contribution to l.  ``"fp4"``
+    rounds the bf16 P to e2m1 against its tile's row maximum (taken before
+    the ``M_CLAMP`` floor), and l sums the rounded P."""
     if p_mode == "bf16":
         p = torch.exp2(st - m_next)
+        return p.to(torch.bfloat16).float(), p.sum(dim=-1, keepdim=True)
+    if p_mode == "fp4":
+        pmax = torch.exp2(st.amax(dim=-1, keepdim=True) - m_next)
+        p = _round_e2m1_tile(torch.exp2(st - m_next), pmax)
         return p.to(torch.bfloat16).float(), p.sum(dim=-1, keepdim=True)
     if p_mode == "int8":
         p = torch.round(torch.exp2((st - m_next) + _F32(INT8_P_OFFSET_LOG2)))
@@ -433,7 +475,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     name = config_name(cfg, Sq)
     Sk = k.shape[2]
     static = cfg.softmax_mode == "static"
-    p_mode = "bf16" if cfg.p_bf16 else cfg.pv_dtype
+    p_mode = "fp4" if cfg.p_sim_fp4 else "bf16" if cfg.p_bf16 else cfg.pv_dtype
     qop, qse, cap = _prepare_q(q, cfg, name, k_head_scale, kn_max, q_scale)
     kf = _per_q_head(k, Hq).float()
     vf = _per_q_head(_v_operand(v, cfg.pv_dtype if cfg.quantized else "bf16"), Hq)
@@ -617,7 +659,9 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
             ptr(qs), ptr(ks), ptr(head_scale), ptr(knm), ptr(vs), ptr(vm), ptr(lse), ptr(lmin),
             B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal), _F32(cfg.sm_scale * LOG2E)]
     fn = "sage_attn_fwd" if in_dtype != 2 else "sage_attn_fwd_q8"
-    if is_ring(cfg, Sq):
+    if cfg.p_sim_fp4:
+        fn = "sage_attn_fwd_fp4"
+    elif is_ring(cfg, Sq):
         fn = "sage_attn_fwd_ring"
         args += [ptr(offs), ptr(kvt)]
     elif _extended(cfg):

@@ -333,9 +333,10 @@ def test_slice2_options_run_and_match_jax(field, value, fixups, name):
 def test_configs_outside_the_slice_raise(field, value):
     """Options of later slices raise NotImplementedError.  Those of slice 3
     (B7-B9) name their launch key, or raise ValueError where the B2 base
-    cannot take them (a window needs causal, sinks need a window)."""
+    cannot take them (a window needs causal, sinks need a window); so does
+    p_sim_fp4, which runs on the flash base only (B4-fp4)."""
     slice3 = {"masked": "B2-bool", "segmented": "B2-seg", "fuse_k_rows": "B2-rowk",
-              "window": ValueError, "sinks": ValueError}
+              "window": ValueError, "sinks": ValueError, "p_sim_fp4": ValueError}
     base = tatt.AttnConfig(**_cfg_fields("B2", False, 128, 64))
     cfg = dataclasses.replace(base, **{field: value})
     expected = slice3.get(field, NotImplementedError)
