@@ -27,7 +27,8 @@ Phases (any failure exits non-zero):
    by the predictive check for the bf16 and int8 entries;
 4. kernels: every kernel against its plain PyTorch version at the main
    path's shapes, with both times, the card's bound for the work and, where
-   one PyTorch call computes the same function, that call's time;
+   one PyTorch call computes the same function, that call's time (B4's in
+   phase 12);
 5. edge cases of the kernels against their plain versions: unaligned
    lengths, f32/f16 inputs, NHD storage seen through strided views, GQA,
    head dim 256 in the prep and quantizers;
@@ -122,9 +123,23 @@ Phases (any failure exits non-zero):
    first, two middle and the last 64-row blocks) and causal at head dims
    64 and 128, and the long B1 launches on sampled heads.  Phase 5 holds
    A3/A4 at unaligned lengths, f32/f16 inputs and strided NHD views, and
-   the two-pass route end to end at a GQA shape against the one-pass call.
+   the two-pass route end to end at a GQA shape against the one-pass call;
+12. B4 on its Hopper kernel (``csrc/flash_sm90.cu``; slice 8), each shape
+   counted on its own: ``flash_attention`` at CogVideoX1.5, Llama-70B GQA
+   causal, Gemma-7B (16 heads, hd 256, 8,192 tokens, causal) and
+   HunyuanVideo, flash against the f32 oracle on sampled rows, B4 against
+   its plain version on sampled heads (HunyuanVideo: the sampled row blocks
+   of the first and last head), its time beside its bound and the
+   library's flash call;
+   then its edge cases at head dims 64, 128 and 256: lengths off the
+   tiles, ``kv_len < Sk``, causal with Sq < Sk, NHD strides, a batch of two
+   with sliced heads, a kv length of whole tiles and a one-column tail.
 
-The line before the last is a JSON object with one entry per kernel; the
+Each attention kernel is launched once on all heads of its shape and its
+outputs on sampled heads are held to its plain version on those heads (the
+plain versions' tile loops run on the host): the first q heads of kv head
+0 and the last q head with the last kv head.  Each phase prints its
+seconds.  The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -217,21 +232,27 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
+    for line in _build.build_log.get("flash_sm90", "").splitlines():   # B4's registers, spills
+        if "entry function" in line or "spill" in line or "Used" in line:
+            print("     flash_sm90.cu ptxas: " + line.strip(), flush=True)
+
+    def timed_phase(what, fn, *args):
+        t = time.time()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        print(f"{what}: {time.time() - t:.1f} s", flush=True)
+        return out
 
     with torch.inference_mode():
-        kernels, totals = run(torch, st)
-        torch.cuda.empty_cache()
-        kernels += run_slice3(torch, st, totals)
-        torch.cuda.empty_cache()
-        kernels += run_serving(torch, st, totals)
-    torch.cuda.empty_cache()
+        kernels, totals = timed_phase("phases 3-6", run, torch, st)
+        kernels += timed_phase("phase 7", run_slice3, torch, st, totals)
+        kernels += timed_phase("phase 8", run_serving, torch, st, totals)
     # training needs autograd: phase 9 runs outside inference mode
-    kernels += run_training(torch, st, totals)
-    torch.cuda.empty_cache()
-    kernels += run_ring(torch, st, totals)
-    torch.cuda.empty_cache()
+    kernels += timed_phase("phase 9", run_training, torch, st, totals)
+    kernels += timed_phase("phase 10", run_ring, torch, st, totals)
     with torch.inference_mode():
-        kernels += run_slice7(torch, st, totals)
+        kernels += timed_phase("phase 11", run_slice7, torch, st, totals)
+        kernels += timed_phase("phase 12", run_flash, torch, st, totals)
     for e in kernels:   # launches over every counted path
         e["launches"] = totals.get(e["name"], 0)
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
@@ -905,19 +926,38 @@ def mochi_phase(torch, st, seen, totals):
           f"{ms:.1f} ms per call (2 timed calls)", flush=True)
 
 
-def slice_heads(args, kw):
-    """The launch's inputs for q heads [0, min(G, 2)) and kv head 0: the
-    plain versions' check at full length on sampled heads."""
+def slice_heads(args, kw, last=False):
+    """The launch's inputs for q heads [0, min(G, 2)) and kv head 0 or, with
+    ``last``, for the last q head and the last kv head, and the slice of q
+    heads they cover: the plain versions' check at full length on sampled
+    heads."""
     q, k, v, cfg, khs, knm, vs, vm, qs, ks = args
-    G = q.shape[1] // k.shape[1]
-    nq = min(G, 2)
-    hq = lambda x: None if x is None else x[:, :nq]  # noqa: E731
-    hk = lambda x: None if x is None else x[:, :1]  # noqa: E731
+    Hq, Hk = q.shape[1], k.shape[1]
+    hs = slice(Hq - 1, Hq) if last else slice(0, min(Hq // Hk, 2))
+    kvs = slice(Hk - 1, Hk) if last else slice(0, 1)
+    hq = lambda x: None if x is None else x[:, hs]  # noqa: E731
+    hk = lambda x: None if x is None else x[:, kvs]  # noqa: E731
     khs = None if khs is None else (hq(khs) if cfg.fuse_k_rows else hk(khs))
     kw = dict(kw)
     if kw.get("attn_mask") is not None and kw["attn_mask"].shape[1] > 1:
-        kw["attn_mask"] = kw["attn_mask"][:, :nq]
-    return (hq(q), hk(k), hk(v), cfg, khs, hq(knm), hk(vs), hk(vm), hq(qs), hk(ks)), kw
+        kw["attn_mask"] = kw["attn_mask"][:, hs]
+    return (hq(q), hk(k), hk(v), cfg, khs, hq(knm), hk(vs), hk(vm), hq(qs), hk(ks)), kw, hs
+
+
+def sampled_heads(args, kw):
+    """The heads that hold a launch on all heads to its plain version: the
+    first q heads of kv head 0 and, where it is another head, the last q
+    head with the last kv head (the highest head offsets and the launch's
+    own GQA map).  A list of ``(sub_args, sub_kw, q_head_slice)``."""
+    first = slice_heads(args, kw)
+    if first[2].stop >= args[0].shape[1]:
+        return [first]
+    return [first, slice_heads(args, kw, last=True)]
+
+
+def heads_of(out, hs):
+    """A launch's outputs ``(o, lse, ...)`` on the q heads ``hs``."""
+    return tuple(None if x is None else x[:, hs] for x in out)
 
 
 def live_pairs(torch, args, kw):
@@ -941,33 +981,37 @@ def live_pairs(torch, args, kw):
 
 
 def attn_kernel_entry(torch, name, args, kw, launches, label=None):
-    """One attention launch ``(args, kw)`` of configuration ``name`` against
-    its plain version on sampled heads at full length (fails the run if
-    they disagree), then its time at the launch's full shape, the bound
-    over the pairs its masks keep and, for flash, the library call's time.
-    Returns the JSON entry (named ``label``, ``name`` by default)."""
+    """One attention launch ``(args, kw)`` of configuration ``name`` on all
+    heads against its plain version on the sampled heads at full length
+    (fails the run if they disagree), then its time at the launch's full
+    shape, the bound over the pairs its masks keep and, for flash, the
+    library call's time.  Returns the JSON entry (named ``label``, ``name``
+    by default)."""
     from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
     from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
-    sub, skw = slice_heads(args, kw)
-    a = attention_kernel(*sub, **skw)
-    b, plain_ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
-    kept, note = static_kept_rows(torch, a, b, sub[0].shape[2])
-    d = calc_diff(a[0][kept], b[0][kept])
-    err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
-    ok = d < KERNEL_BAR
-    if a[1] is not None:
-        rows = (a[1] > -1e19) & (b[1] > -1e19) & kept
-        dl = float((a[1][rows] - b[1][rows]).abs().max()) if bool(rows.any()) else 0.0
-        ok = ok and dl < LSE_BAR and bool(torch.equal(rows, (b[1] > -1e19) & kept))
     q, k = args[0], args[1]
     shape = f"{tuple(q.shape)} Hk={k.shape[1]} causal={args[3].causal}"
-    check(ok, f"{label or name} vs plain on {sub[0].shape[1]} q heads of {shape}{note}: "
-              f"calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
+    full = attention_kernel(*args, **kw)
+    plain_ms, err, heads = None, 0.0, []
+    for sub, skw, hs in sampled_heads(args, kw):
+        a = heads_of(full, hs)
+        b, ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
+        plain_ms = ms if plain_ms is None else plain_ms
+        kept, note = static_kept_rows(torch, a, b, q.shape[2])
+        d = calc_diff(a[0][kept], b[0][kept])
+        err = max(err, float((a[0][kept].float() - b[0][kept].float()).abs().max()))
+        ok = d < KERNEL_BAR
+        if a[1] is not None:
+            rows = (a[1] > -1e19) & (b[1] > -1e19) & kept
+            dl = float((a[1][rows] - b[1][rows]).abs().max()) if bool(rows.any()) else 0.0
+            ok = ok and dl < LSE_BAR and bool(torch.equal(rows, (b[1] > -1e19) & kept))
+        heads.append(f"{hs.start}-{hs.stop - 1}")
+        check(ok, f"{label or name} vs plain on q heads {heads[-1]} of {shape}{note}: "
+                  f"calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
     ms = time_fn(lambda: attention_kernel(*args, **kw), warmup=2, reps=5) * 1e3
-    a = attention_kernel(*args, **kw)
     moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
                    *(x for x in kw.values() if isinstance(x, torch.Tensor)),
-                   *(x for x in a if x is not None))
+                   *(x for x in full if x is not None))
     pairs = live_pairs(torch, args, kw)
     bound = attn_bound_pairs(args[3], pairs, q.shape[-1], moved)
     lib = None
@@ -976,7 +1020,7 @@ def attn_kernel_entry(torch, name, args, kw, launches, label=None):
     elif name == "B4":
         lib = library_ms(torch, q, k, args[2], args[3].causal)
     return ext_entry(launches, label or name, err, ms, plain_ms, bound, lib,
-                     shape + f", {pairs} live pairs; plain on {sub[0].shape[1]} q heads")
+                     shape + f", {pairs} live pairs; plain on q heads {', '.join(heads)}")
 
 
 def ext_kernel_checks(torch, seen, totals):
@@ -1015,7 +1059,8 @@ def static_kept_rows(torch, a, b, Sq):
 
 
 def ext_entry(launches, name, err, ms, plain_ms, bound, lib, shape):
-    src = SRC_QUANT if name.startswith("A") else SRC_ATTN
+    src = (SRC_QUANT if name.startswith("A") else SRC_FLASH if name.split()[0] == "B4"
+           else SRC_ATTN)
     rep = TPU_KERNELS["A6"] if name.startswith("A") else TPU_KERNELS["B"]
     libs = "" if lib is None else f", library {lib:.3f} ms"
     print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1212,16 +1257,22 @@ def _device_us(prof):
 def decode_device_ms(torch, fn, reps=20):
     """Device time per call of the B11/D1 kernels (split and merge launches)
     that ``fn`` runs, from a ``torch.profiler`` trace of ``reps`` calls: the
-    wrapper's host work and its small copies are left out."""
+    wrapper's host work and its small copies are left out.  A trace that
+    records none of them (CUPTI has dropped a whole trace on the card) is
+    taken again, up to 3 times; 0 if none records them."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(us for name, us in _device_us(prof) if "decode_" in name) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = sum(us for name, us in _device_us(prof) if "decode_" in name) / 1e3 / reps
+        if ms > 0:
+            return ms
+    return 0.0
 
 
 def profile_steps(torch, step, caches, step_ms, n=2):
@@ -2887,6 +2938,12 @@ COG_DIT = dict(hidden=3072, heads=48, depth=2, patch=2, in_channels=16, text_dim
 FP4_CAUSAL_S = 8192   # length of B4-fp4's causal checks, in full
 
 
+def kernel_ms(fn):
+    """Median ms per call of 20 calls (CUDA events), after 3 warm calls."""
+    from sageattention_tpu_torch.utils.testing import time_fn
+    return time_fn(fn, warmup=3, reps=20) * 1e3
+
+
 def trials_ms(torch, fn):
     """Median ms per call over 3 trials of 3 calls (CUDA events), after one
     warm call: for calls of about a second."""
@@ -2947,29 +3004,33 @@ def flash_oracle_check(torch, what, flash, q, k, v, causal):
 
 
 def long_b1_check(torch, what, args, kw, timer=trials_ms):
-    """A long B1 launch against its plain version on sampled heads at full
-    length (the plain version walks query-row chunks: no S x S matrix),
-    then its kernel time (by ``timer``: 3 trials of 3 launches)."""
+    """A long B1 launch on all heads against its plain version on the
+    sampled heads at full length (the plain version walks query-row chunks:
+    no S x S matrix), then its kernel time (by ``timer``: 3 trials of 3
+    launches)."""
     from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
     from sageattention_tpu_torch.utils.testing import calc_diff
-    sub, skw = slice_heads(args, kw)
-    a = attention_kernel(*sub, **skw)
-    b, plain_ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
-    kept, note = static_kept_rows(torch, a, b, sub[0].shape[2])
-    d = calc_diff(a[0][kept], b[0][kept])
-    err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
-    check(d < KERNEL_BAR, f"{what} B1 vs plain on {sub[0].shape[1]} q heads{note}: calc_diff "
-                          f"{d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
-    del a, b
-    ms = timer(torch, lambda: attention_kernel(*args, **kw))
     q, k = args[0], args[1]
     out = attention_kernel(*args, **kw)
+    plain_ms, heads = None, []
+    for sub, skw, hs in sampled_heads(args, kw):
+        a = heads_of(out, hs)
+        b, ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
+        plain_ms = ms if plain_ms is None else plain_ms
+        kept, note = static_kept_rows(torch, a, b, q.shape[2])
+        d = calc_diff(a[0][kept], b[0][kept])
+        err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
+        heads.append(f"{hs.start}-{hs.stop - 1}")
+        check(d < KERNEL_BAR, f"{what} B1 vs plain on q heads {heads[-1]}{note}: calc_diff "
+                              f"{d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
+        del a, b
+    ms = timer(torch, lambda: attention_kernel(*args, **kw))
     moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
                    *(x for x in kw.values() if isinstance(x, torch.Tensor)),
                    *(x for x in out if x is not None))
     bound = attn_bound(args[3], q, k, moved)
     print(f"     {what} B1 at {tuple(q.shape)} Hk={k.shape[1]} causal={args[3].causal}: kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms on {sub[0].shape[1]} q heads, bound "
+          f"{ms:.3f} ms, plain {plain_ms:.3f} ms on q heads {heads[0]}, bound "
           f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
 
 
@@ -3259,6 +3320,156 @@ def run_slice7(torch, st, totals):
     return entries
 
 
+# ------------------------------------------------- slice 8: B4 on Hopper ----
+
+SRC_FLASH = "sageattention_tpu_torch/csrc/flash_sm90.cu"
+# B4's shapes on the main paths: B, Hq, Hk, S, D, causal
+FLASH_SHAPES = {"CogVideoX1.5": COG_SHAPE + (False,),
+                "Llama-70B GQA": (1, 64, 8, 16384, 128, True),
+                "Gemma-7B hd 256": (1, 16, 16, 8192, 256, True),
+                "HunyuanVideo": HUNYUAN_SHAPE + (False,)}
+
+
+def flash_vs_plain(torch, what, args, sampled=False, plain_rows=None):
+    """B4 launched on all of ``args`` (attention_kernel's positional inputs)
+    against its plain version on every head or, with ``sampled``, on the
+    sampled heads (:func:`sampled_heads`) or, with ``plain_rows``, on those
+    query rows of the first and the last q head (non-causal: a row's result
+    does not depend on the other rows).  Returns (max_abs_err, plain_ms),
+    the plain version's time on the first sample."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    q, k, v, cfg = args
+    a = attention_kernel(*args)
+    Hq, Hk = q.shape[1], k.shape[1]
+    if plain_rows is not None:
+        idx = torch.tensor(plain_rows, device="cuda")
+        parts = [((slice(h, h + 1), idx), (q[:, h:h + 1, idx], k[:, kh:kh + 1],
+                                             v[:, kh:kh + 1], cfg))
+                 for h, kh in ((0, 0), (Hq - 1, Hk - 1))]
+    elif sampled:
+        parts = [((hs,), sub[:4]) for sub, _, hs in sampled_heads(args + (None,) * 6, {})]
+    else:
+        parts = [((), args)]
+    err, plain_ms = 0.0, None
+    for sel, sub in parts:
+        ka, kl = a[0][(slice(None),) + sel], a[1][(slice(None),) + sel]
+        b, ms = timed_call(torch, lambda: attention_plain(*sub))
+        plain_ms = ms if plain_ms is None else plain_ms
+        d = calc_diff(ka, b[0])
+        e = float((ka.float() - b[0].float()).abs().max())
+        err = max(err, e)
+        dl = float((kl - b[1]).abs().max())
+        heads = "" if not sel else f", q heads {sel[0].start}-{sel[0].stop - 1}"
+        check(d < KERNEL_BAR and dl < LSE_BAR and ka.dtype == b[0].dtype,
+              f"B4 vs plain, {what}{heads}: calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {e:.3e}, "
+              f"lse {dl:.2e} < {LSE_BAR}")
+    return err, plain_ms
+
+
+def flash_timing(torch, what, args, timer, lib_reps=20):
+    """B4's time on ``args`` by ``timer``, its bound, and the library call's
+    time on the same inputs (keys cut at ``kv_len``; none for causal with
+    Sq != Sk, which its flash backend refuses).  Returns (ms, bound,
+    library_ms)."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel
+    q, k, v, cfg = args
+    ms = timer(lambda: attention_kernel(*args))
+    out = attention_kernel(*args)
+    bound = attn_bound(cfg, q, k, nbytes(q, k, v, *out))
+    n = cfg.kv_len or k.shape[2]
+    lib = None   # the library's flash takes causal only with Sq == Sk
+    if not cfg.causal or q.shape[2] == n:
+        lib = library_ms(torch, q, k[:, :, :n], v[:, :, :n], cfg.causal, reps=lib_reps)
+    libs = "none (causal, Sq != Sk)" if lib is None else f"{lib:.3f} ms"
+    print(f"     B4 at {what}: kernel {ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
+          f"library {libs}", flush=True)
+    return ms, bound, lib
+
+
+def flash_edge_cases(torch):
+    """B4 on flash_sm90.cu's edges, each against its plain version on every
+    head, with its time, bound and library time: lengths off the 128-row q
+    tile and the kv tile, kv_len < Sk (the K/V maps end there), Sq != Sk
+    under causal (top-left), NHD strides, a batch of two with sliced heads
+    (strided, offset bases), a kv length of whole tiles inside a longer Sk
+    (no tail tile) and a one-column tail tile, at head dims 64, 128 and
+    256.  Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops.attention import AttnConfig, flash_kv_tile
+    g = torch.Generator(device="cuda").manual_seed(SEED + 81)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda").bfloat16()  # noqa: E731
+    nhd_view = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    errs = []
+    for D in (64, 128, 256):
+        bn = flash_kv_tile(D)
+
+        def cfg(causal, kv_len=0):
+            return AttnConfig(causal=causal, quantized=False, sm_scale=D ** -0.5, kv_len=kv_len)
+
+        q, k, v = rn(1, 4, 1000, D), rn(1, 2, 1333, D), rn(1, 2, 1333, D)
+        big = [rn(2, 8, 1100, D) for _ in range(3)]
+        tail = tuple(rn(1, 2, 2 * bn + 1, D) for _ in range(3))
+        cases = [
+            ("unaligned (1,4/2,1000 x 1333)", (q, k, v, cfg(False))),
+            ("kv_len 900 of Sk 1333", (q, k, v, cfg(False, 900))),
+            ("causal, Sq 700 < Sk 1000", (q[:, :, :700], k[:, :, :1000], v[:, :, :1000],
+                                          cfg(True))),
+            ("NHD strides, causal (1,4/2,1000)", tuple(nhd_view(x[:, :, :1000]) for x in (q, k, v))
+             + (cfg(True),)),
+            ("B = 2, q heads 1-4 of 8, kv heads 2-3, 1100", (big[0][:, 1:5], big[1][:, 2:4],
+                                                              big[2][:, 2:4], cfg(False))),
+            (f"kv_len {2 * bn} (whole tiles) of Sk 1333", (q, k, v, cfg(False, 2 * bn))),
+            (f"causal, S = {2 * bn + 1} (a one-column tail tile)", tail + (cfg(True),)),
+        ]
+        for what, args in cases:
+            what = f"{what}, D={D}"
+            errs.append(flash_vs_plain(torch, what, args)[0])
+            flash_timing(torch, what, args, kernel_ms)
+    return max(errs)
+
+
+def run_flash(torch, st, totals):
+    """Phase 12 (slice 8): B4 on its Hopper kernel (``csrc/flash_sm90.cu``)
+    at the main paths' shapes.  For each: ``flash_attention`` counted on its
+    own (one B4 launch), flash against the f32 oracle on sampled rows, B4
+    launched on all heads against its plain version on the sampled heads
+    (the sampled row blocks of the first and last head at HunyuanVideo),
+    its time beside its
+    bound and the library call's; then the edge cases.  Returns B4's JSON
+    entry (CogVideoX1.5's numbers; the largest error of all)."""
+    from sageattention_tpu_torch.ops.attention import AttnConfig
+    res = {}
+    for i, (label, (B, H, Hk, S, D, causal)) in enumerate(FLASH_SHAPES.items()):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 70 + i)
+        what = f"{label} ({B},{H}/{Hk},{S},{D}) causal={causal}"
+        out, _ = counted_path(torch, f"{what} flash", ("B4",), {}, totals,
+                              lambda: st.flash_attention(q, k, v, is_causal=causal))
+        exact_counts(f"{what} flash", read_counts(), {"B4": 1})
+        flash_oracle_check(torch, what, out, q, k, v, causal)
+        del out
+        args = (q, k, v, AttnConfig(causal=causal, quantized=False, sm_scale=D ** -0.5))
+        if label == "HunyuanVideo":
+            rows = row_blocks(S)
+            err, plain_ms = flash_vs_plain(torch, f"{what}, {len(rows)} sampled rows", args,
+                                           plain_rows=rows)
+            timing = flash_timing(torch, what, args, lambda fn: trials_ms(torch, fn), lib_reps=3)
+        else:
+            err, plain_ms = flash_vs_plain(torch, what, args, sampled=True)
+            timing = flash_timing(torch, what, args, kernel_ms)
+        res[label] = (err, plain_ms) + timing
+        del q, k, v, args
+        torch.cuda.empty_cache()
+    edge_err = flash_edge_cases(torch)
+    err, plain_ms, ms, bound, lib = res["CogVideoX1.5"]
+    return [{"name": "B4", "route": "cuda", "source": SRC_FLASH, "replaces": TPU_KERNELS["B"],
+             "launches": 0, "max_abs_err": max([edge_err] + [r[0] for r in res.values()]),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+             "library_ms": lib,
+             "shape": f"{COG_SHAPE}; plain on q heads 0, 47; "
+                      + "; ".join(f"{lb}: {r[2]:.3f} ms, bound {r[3][0]:.3f}, library {r[4]:.3f}"
+                                  for lb, r in res.items())}]
+
+
 # ---------------------------------------------------------------- configs ----
 
 def attn_cfg(torch, name, D, causal):
@@ -3501,14 +3712,15 @@ def edge_checks(torch):
                       f"{xs[0].dtype} nhd={nhd}: calc_diff {d:.2e}")
 
 
+# attention_kernel's keyword inputs after (q, k, v, cfg), in its order
+ATTN_KW = ("k_head_scale", "kn_max", "v_scale", "v_mean", "q_scale", "k_scale")
+
+
 def kernel_checks(torch, inputs, short, adv_native, launches):
     from sageattention_tpu_torch.ops import quant_fused as qf
     from sageattention_tpu_torch.ops import quant_kernels as qk
     from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
-    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
-
-    def kernel_ms(fk):
-        return time_fn(fk, warmup=3, reps=20) * 1e3
+    from sageattention_tpu_torch.utils.testing import calc_diff
 
     entries = []
 
@@ -3588,7 +3800,6 @@ def kernel_checks(torch, inputs, short, adv_native, launches):
             ("B2", [(q, k, v, False), (*adv_native, False)]),
             ("B3", [(*short, False)]),
             ("B3-online", [(*short, False)]),
-            ("B4", [(q, k, v, False), (*llama, True)]),
             ("B5-int8", [(q, k, v, False)]),
             ("B5-fp8", [(q, k, v, False), (*llama, True)]),
             ("B5-fp8-fusedq", [(q, k, v, False)]),
@@ -3601,35 +3812,42 @@ def kernel_checks(torch, inputs, short, adv_native, launches):
         errs, timed = [], None
         for qq, kk, vv, causal in shapes:
             cfg = attn_cfg(torch, name, qq.shape[-1], causal)
-            if name == "B4":
-                xs, kw = (qq, kk, vv), {}
-            else:
-                xs, kw = kernel_args(torch, cfg, qq, kk, vv)
-            a = attention_kernel(*xs, cfg, **kw)
-            b, plain_ms = timed_call(torch, lambda: attention_plain(*xs, cfg, **kw))
-            d = calc_diff(a[0], b[0])
-            err = float((a[0].float() - b[0].float()).abs().max())
-            dl = float((a[1] - b[1]).abs().max())
-            ok = d < KERNEL_BAR and dl < LSE_BAR
-            if a[2] is not None:
-                ok = ok and bool(torch.allclose(a[2], b[2], rtol=1e-4, atol=0))
-            check(ok, f"{name} vs plain at {tuple(qq.shape)} Hk={kk.shape[1]} causal={causal}: "
-                      f"calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}, lse {dl:.2e}")
-            errs.append(err)
+            xs, kw = kernel_args(torch, cfg, qq, kk, vv)
+            # one launch on all heads; the plain version's host-bound tile
+            # loop runs on the sampled heads, held to those heads' outputs
+            full = (*xs, cfg) + tuple(kw.get(n) for n in ATTN_KW)
+            out = attention_kernel(*full)
+            plain_ms, heads = None, []
+            for sub, _, hs in sampled_heads(full, {}):
+                a = heads_of(out, hs)
+                b, ms = timed_call(torch, lambda: attention_plain(*sub))
+                plain_ms = ms if plain_ms is None else plain_ms
+                d = calc_diff(a[0], b[0])
+                err = float((a[0].float() - b[0].float()).abs().max())
+                dl = float((a[1] - b[1]).abs().max())
+                ok = d < KERNEL_BAR and dl < LSE_BAR
+                if a[2] is not None:
+                    ok = ok and bool(torch.allclose(a[2], b[2], rtol=1e-4, atol=0))
+                heads.append(f"{hs.start}-{hs.stop - 1}")
+                check(ok, f"{name} vs plain on q heads {heads[-1]} of {tuple(qq.shape)} "
+                          f"Hk={kk.shape[1]} causal={causal}: calc_diff {d:.3e} < {KERNEL_BAR}, "
+                          f"max_abs {err:.3e}, lse {dl:.2e}")
+                errs.append(err)
             if timed is None:
-                ms = kernel_ms(lambda: attention_kernel(*xs, cfg, **kw))
-                moved = nbytes(*xs, *kw.values(), *a)
-                lib = library_ms(torch, qq, kk, vv, causal) if name == "B4" else None
-                timed = (ms, plain_ms, attn_bound(cfg, qq, kk, moved), lib,
-                         f"{tuple(qq.shape)} Hk={kk.shape[1]} causal={causal}")
+                ms = kernel_ms(lambda: attention_kernel(*full))
+                moved = nbytes(*xs, *kw.values(), *out)
+                timed = (ms, plain_ms, attn_bound(cfg, qq, kk, moved), None,
+                         f"{tuple(qq.shape)} Hk={kk.shape[1]} causal={causal}; plain on "
+                         f"q heads {', '.join(heads)}")
+            del out
         entry(name, SRC_ATTN, TPU_KERNELS["B"], max(errs), *timed)
     return entries
 
 
-def library_ms(torch, q, k, v, causal):
+def library_ms(torch, q, k, v, causal, reps=20):
     """``F.scaled_dot_product_attention`` on its flash backend, bf16: the one
     PyTorch call that computes what B4 computes (timed here, never called
-    by the port)."""
+    by the port), over ``reps`` calls."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from sageattention_tpu_torch.utils.testing import time_fn
     if k.shape[1] != q.shape[1]:
@@ -3637,7 +3855,7 @@ def library_ms(torch, q, k, v, causal):
         k, v = k.repeat_interleave(G, dim=1), v.repeat_interleave(G, dim=1)
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         return time_fn(lambda: torch.nn.functional.scaled_dot_product_attention(
-            q, k, v, is_causal=causal), warmup=3, reps=20) * 1e3
+            q, k, v, is_causal=causal), warmup=min(3, reps), reps=reps) * 1e3
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 // SageAttention forward with Q quantized inside the kernel (B1-B3, B5 with
-// a fused Q) and the bf16 flash baseline (B4).  The kernel itself and its
-// design notes are in attention.cuh; attention_q8.cu instantiates it for a
-// pre-quantized Q.
+// a fused Q).  The kernel itself and its design notes are in attention.cuh;
+// attention_q8.cu instantiates it for a pre-quantized Q.  The unmasked bf16
+// flash baseline (B4) is flash_sm90.cu's; its masked, windowed and FP4
+// forms are built by attention_ext.cu and attention_lowbit.cu.
 #include "attention.cuh"
 
 using namespace sage_attn;
@@ -13,11 +14,12 @@ const char* sage_attn_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// qmode: 0 = int8 Q quantized here, 1 = bf16 compute, 2 = flash.
+// qmode: 0 = int8 Q quantized here, 1 = bf16 compute (2, flash, is not
+// built here).
 // pv: 0 = bf16 P / int8 V, 1 = bf16 P / bf16 V, 2 = int8 P / int8 V,
 // 3 = e4m3 P / e4m3 V.  in_dtype (of q) = out_dtype: 0 = bfloat16,
-// 1 = float32 (flash: bfloat16 only).  Strides are in elements of each
-// tensor's own type; K is int8 codes unless qmode == 2.
+// 1 = float32.  Strides are in elements of each tensor's own type; K is
+// int8 codes.
 int sage_attn_fwd(int qmode, int static_sm, int pv, int in_dtype, int out_dtype, int D,
                   const void* q, const void* k, const void* v, void* o, long long q_sb,
                   long long q_sh, long long q_ss, long long k_sb, long long k_sh,
@@ -33,11 +35,6 @@ int sage_attn_fwd(int qmode, int static_sm, int pv, int in_dtype, int out_dtype,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_dtype != out_dtype || q_scale) return -1;
-  if (qmode == Q_FLASH) {
-    if (static_sm || in_dtype != 0) return -1;
-    return Launcher<__nv_bfloat16, __nv_bfloat16, false>{p, grid, s}
-        .d<Q_FLASH, false, PV_BF16P_BF16V>(D);
-  }
   if (in_dtype == 0)
     return Launcher<__nv_bfloat16, __nv_bfloat16, false>{p, grid, s}.run(qmode, pv, static_sm, D);
   if (in_dtype == 1)

@@ -7,7 +7,10 @@ configurations, by their launch key (``config_name``):
   B1 / B2        fused int8 Q, native int8 QK^T, int8 V under a bf16 P:
                  static, and its online fallback (pv_via_bf16)
   B3 / B3-online fused Q with bf16 compute (short sequences), int8 V
-  B4             quantized=False: the bf16 flash baseline
+  B4             quantized=False: the bf16 flash baseline; with no mask,
+                 window, segments or FP4 rounding it runs
+                 ``csrc/flash_sm90.cu`` (TMA, wgmma, warpgroups taking
+                 turns), whose kv tiles are ``flash_kv_tile(D)`` wide
   B4-fp4         the same with ``p_sim_fp4``: each 64-column P tile rounded
                  to e2m1 at (its row max) / 6 under the online softmax, l
                  summing the rounded P (``csrc/attention_lowbit.cu``; the
@@ -39,8 +42,9 @@ computes with ``fp8_native_dot=False``.  Unlike the TPU kernel, the inputs
 need no padding to the block sizes: the CUDA kernel masks the ragged edges
 itself and picks its own tiles, so ``block_q``/``block_k``/
 ``block_k_inner`` are accepted and ignored, and the online softmax walks
-64-column kv tiles.  ``lmin`` comes back as ``[B, Hq, ceil(Sq/64)]``, one
-minimum row denominator per 64-row query tile.
+64-column kv tiles (the unmasked B4: ``flash_kv_tile(D)`` columns).
+``lmin`` comes back as ``[B, Hq, ceil(Sq/64)]``, one minimum row
+denominator per 64-row query tile.
 
 The decode configuration (B11: a dynamic length ``kv_true_dyn``, dynamic
 causal ``offsets``, ``causal_row_mod`` for folded verify windows, any
@@ -177,6 +181,24 @@ def _extended(cfg: AttnConfig) -> bool:
     """True for the configurations built from the B7-B9 kernel sources."""
     return (cfg.masked != "none" or cfg.segmented or bool(cfg.window)
             or cfg.fuse_k_rows)
+
+
+def flash_sm90_route(cfg: AttnConfig, rows: int) -> bool:
+    """True for the configurations that ``csrc/flash_sm90.cu`` runs: the
+    bf16 flash baseline (B4, ``quantized=False``) with no FP4 rounding, no
+    ring offsets or device length, and no mask, segments, window or row K
+    scales.  Every other B4 form stays on ``attention.cuh``'s body."""
+    return (not cfg.quantized and not cfg.p_sim_fp4 and not is_ring(cfg, rows)
+            and not _extended(cfg))
+
+
+def flash_kv_tile(D: int) -> int:
+    """kv columns per online-softmax tile of ``flash_sm90.cu`` at head dim
+    ``D`` (its BN): 128 up to D = 128, 64 at D = 256, where Q and two K and
+    V stages must fit the 227 KB of shared memory.  B4's bf16 P is rounded
+    per tile against the running max, so the plain version walks the same
+    tiles."""
+    return 128 if D <= 128 else 64
 
 
 def _check_options(cfg: AttnConfig) -> None:
@@ -463,7 +485,8 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     exact int8 QK^T (an f32 product of int8 codes is exact for D <= 256 with
     TF32 off), P summed into l as the kernel rounds it (unrounded f32 for a
     bf16 P, the codes for int8/e4m3 P), P times V with f32 sums, and the
-    online softmax over the kernel's 64-column kv tiles.  A kv tile that
+    online softmax over the kernel's kv tiles (64 columns, or
+    ``flash_kv_tile(D)`` on ``flash_sm90.cu``'s route).  A kv tile that
     the kernel skips (dead under a mask or below a window) holds only masked
     scores here, which changes no running sum, so both agree exactly.
     ``q_segments [B,Sq]``, ``kv_segments``/``kv_segpos [B,Sk]``,
@@ -476,6 +499,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     Sk = k.shape[2]
     static = cfg.softmax_mode == "static"
     p_mode = "fp4" if cfg.p_sim_fp4 else "bf16" if cfg.p_bf16 else cfg.pv_dtype
+    tile = flash_kv_tile(D) if flash_sm90_route(cfg, Sq) else KV_TILE   # the kernel's kv tile
     qop, qse, cap = _prepare_q(q, cfg, name, k_head_scale, kn_max, q_scale)
     kf = _per_q_head(k, Hq).float()
     vf = _per_q_head(_v_operand(v, cfg.pv_dtype if cfg.quantized else "bf16"), Hq)
@@ -511,8 +535,8 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                 m = torch.full((B, Hq, r1 - r0, 1), M_CLAMP, device=q.device)
                 l = torch.zeros_like(m)
                 acc = torch.zeros((B, Hq, r1 - r0, D), device=q.device)
-                for c0 in range(0, hi, KV_TILE):
-                    st = s[..., c0:c0 + KV_TILE]
+                for c0 in range(0, hi, tile):
+                    st = s[..., c0:c0 + tile]
                     m_next = torch.clamp_min(
                         torch.maximum(m, st.amax(dim=-1, keepdim=True)), M_CLAMP)
                     alpha = torch.exp2(m - m_next)
@@ -600,16 +624,23 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                      v_scale=None, v_mean=None, q_scale=None, k_scale=None,
                      q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None,
                      offsets=None, kv_true=None):
-    """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/attention.cu``
-    (fused Q, flash) or ``attention_q8.cu`` (pre-quantized Q), and their
-    ``*_ext.cu`` builds for the B7-B9 options; same arguments and returns
-    as :func:`attention_plain`.  B10's offsets and true length stay on the
-    device: the kernel reads them."""
+    """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/flash_sm90.cu``
+    (the unmasked flash, :func:`flash_sm90_route`), ``csrc/attention.cu``
+    (fused Q) or ``attention_q8.cu`` (pre-quantized Q), and their
+    ``*_ext.cu`` builds for the B7-B9 options (masked flash too); same
+    arguments and returns as :func:`attention_plain`.  B10's offsets and
+    true length stay on the device: the kernel reads them."""
     B, Hq, Sq, D = q.shape
     name = config_name(cfg, Sq)
     _, Hk, Sk, _ = k.shape
     if D not in (64, 128, 256):
         raise ValueError(f"the attention kernel takes head_dim 64/128/256 (pad first), got {D}")
+    if flash_sm90_route(cfg, Sq):
+        out, lse = _flash_sm90(q, k, v, cfg, v_mean)
+        attention_call.launches[name] += 1
+        if out.dtype != cfg.out_dtype:
+            out = out.to(cfg.out_dtype)
+        return out, lse, None
     static = cfg.softmax_mode == "static"
     out_dtype = cfg.out_dtype if cfg.out_dtype in (torch.bfloat16, torch.float32) else torch.float32
     if not cfg.quantized:
@@ -696,6 +727,37 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     if out.dtype != cfg.out_dtype:
         out = out.to(cfg.out_dtype)
     return out, lse, lmin
+
+
+def _tma_operand(x):
+    """``x`` in bf16 as a tensor map takes it: :func:`_build.vector_aligned`
+    and no zero stride over a dimension longer than 1 (an expanded view)."""
+    x = _build.vector_aligned(x.to(torch.bfloat16))
+    if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
+        return x.contiguous()
+    return x
+
+
+def _flash_sm90(q, k, v, cfg, v_mean):
+    """Launch ``csrc/flash_sm90.cu`` (B4 on :func:`flash_sm90_route`):
+    ``(out bf16, lse_base2 | None)``.  Any strides with a unit column
+    stride load as they are (HND, NHD, sliced heads)."""
+    if v_mean is not None:
+        raise ValueError("the unmasked flash kernel takes no v_mean")
+    if not cfg.sm_scale > 0:
+        raise ValueError(f"the unmasked flash kernel takes sm_scale > 0, got {cfg.sm_scale}")
+    B, Hq, Sq, D = q.shape
+    _, Hk, Sk, _ = k.shape
+    q, k, v = (_tma_operand(x) for x in (q, k, v))
+    out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if cfg.emit_lse else None)
+    _build.call("sage_flash_fwd", q.device, D, flash_kv_tile(D), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *v.stride()[:3], *out.stride()[:3], None if lse is None else lse.data_ptr(),
+                B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
+                _F32(cfg.sm_scale * LOG2E))
+    return out, lse
 
 
 # ------------------------------------------------------------ decode (B11) ----
