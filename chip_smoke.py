@@ -133,7 +133,25 @@ Phases (any failure exits non-zero):
    library's flash call;
    then its edge cases at head dims 64, 128 and 256: lengths off the
    tiles, ``kv_len < Sk``, causal with Sq < Sk, NHD strides, a batch of two
-   with sliced heads, a kv length of whole tiles and a one-column tail.
+   with sliced heads, a kv length of whole tiles and a one-column tail;
+13. C1 and C2 bf16 with no mask and no window on their Hopper kernels
+   (``csrc/backward_sm90.cu``; slice 9; the int8, window, bool and head dim
+   256 forms stay on ``csrc/backward.cu``), each shape counted on its own,
+   after ``ptxas``'s report for the source (no spill allowed):
+   ``attention_backward`` from the port's flash forward on realistic inputs
+   at the Llama-3-8B-width fine-tune's shape (1, 32/8, 8,192, 128, causal)
+   and the CogVideoX1.5 DiT's (1, 48, 17,776, 64); the ring's per-pair form
+   (a given di, f32 outputs) on a CogVideoX1.5 chunk pair (5,120 x 5,120)
+   and a diagonal Llama-3.1-8B pair (16,384 x 16,384, causal); C1 and C2
+   launched on all heads and held to ``attention_backward_plain`` on the
+   first and the last q heads, their times beside their bounds and the
+   library's backward (one ``torch.autograd.grad`` through
+   ``F.scaled_dot_product_attention``).  Then the edge cases at head dims
+   64 and 128 on every head: lengths that are odd multiples of 64, Sq !=
+   Sk, GQA 4, a batch of two, and a one-row tail through
+   ``attention_backward`` against the same call on the CPU.  Phases 9f,
+   10b and 10d replay what the training and ring paths launched on the
+   same route.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -253,6 +271,10 @@ def main() -> int:
     with torch.inference_mode():
         kernels += timed_phase("phase 11", run_slice7, torch, st, totals)
         kernels += timed_phase("phase 12", run_flash, torch, st, totals)
+    # the library's backward, timed beside C1/C2, needs tensors made outside
+    # inference mode
+    with torch.no_grad():
+        kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
     for e in kernels:   # launches over every counted path
         e["launches"] = totals.get(e["name"], 0)
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
@@ -2310,12 +2332,15 @@ def backward_kernel_checks(torch, seen, totals):
     from the inputs of its first ``attention_backward`` call: the kernel
     against ``attention_backward_plain`` on 1-2 sampled q heads at full
     length (calc_diff <= KERNEL_BAR per gradient), the gradients of KV
-    head 0 against the f32 exact ones, the kernel's time at the path's full
-    shape, its bound and, for bf16, the library's backward."""
+    head 0 against the f32 exact ones, and, for the configurations that
+    stay on ``backward.cu``, the kernel's time at the path's full shape,
+    its bound and, for bf16, the library's backward (phase 13 times those
+    on ``backward_sm90.cu``)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
     entries, failures, exact_done = [], [], set()
-    for name in sorted(n for n in seen if n.startswith(("C1-", "C2-"))):
+    seen_bwd = sorted(n for n in seen if n.startswith(("C1-", "C2-")))
+    for name in seen_bwd:
         (q, k, v, o, lse, do), kw = seen[name]
         kernel, quant = name[:2], kw.get("quantized", False)
         B, Hq, Sq, D = q.shape
@@ -2364,6 +2389,8 @@ def backward_kernel_checks(torch, seen, totals):
                 grad_check(torch, f"{cfg} (C1 + C2) from the exact forward, sequence {b}, "
                                   f"q heads 0-{G - 1}",
                            (got_b[0][0], got_b[1][0, 0], got_b[2][0, 0]), ref, quant)
+        if bwd_source(name, D) == SRC_BWD_SM90:   # timed, with its JSON entry, in phase 13
+            continue
         pf = tbwd.prepare(q, k, v, o, lse, do, sm_scale=kw["sm_scale"], quantized=quant,
                           attn_mask=mask)
         pf.update(opts, out_dtype=torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32)
@@ -2379,7 +2406,7 @@ def backward_kernel_checks(torch, seen, totals):
         print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
               f"bound {bound[0]:.3f} ms ({bound[1]}){libs} at {shape}, {pairs} kept pairs; "
               f"plain on {min(G, 2)} q heads", flush=True)
-        entries.append({"name": name, "route": "cuda", "source": SRC_BWD,
+        entries.append({"name": name, "route": "cuda", "source": bwd_source(name, D),
                         "replaces": TPU_KERNELS[kernel], "launches": totals.get(name, 0),
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
@@ -2387,7 +2414,7 @@ def backward_kernel_checks(torch, seen, totals):
         del pf, out
     check(not failures, f"{len(failures)} C1/C2 configurations disagree with their plain "
                         "versions: " + "; ".join(failures))
-    check(bool(entries), "the training paths launched C1/C2")
+    check(bool(seen_bwd), "the training paths launched C1/C2")
     return entries
 
 
@@ -3468,6 +3495,203 @@ def run_flash(torch, st, totals):
              "shape": f"{COG_SHAPE}; plain on q heads 0, 47; "
                       + "; ".join(f"{lb}: {r[2]:.3f} ms, bound {r[3][0]:.3f}, library {r[4]:.3f}"
                                   for lb, r in res.items())}]
+
+
+# ------------------------------------------- slice 9: C1/C2 on Hopper ----
+
+SRC_BWD_SM90 = "sageattention_tpu_torch/csrc/backward_sm90.cu"
+# C1/C2's bf16 forms with no mask and no window on the main paths: B, Hq, Hk,
+# Sq, Sk, D, causal.  Phase 9's Llama-3-8B-width fine-tune and CogVideoX1.5-
+# width DiT step; the ring's per-pair form (a given di, f32 outputs) on a
+# CogVideoX1.5 chunk pair and a diagonal pair of phase 10's 4-rank
+# Llama-3.1-8B ring at 65,536 tokens
+BWD_SHAPES = {"Llama-3-8B causal": (1, 32, 8, 8192, 8192, 128, True),
+              "CogVideoX1.5": (1, 48, 48, 17776, 17776, 64, False)}
+BWD_RING_PAIRS = {"CogVideoX1.5 chunk pair": (1, 48, 48, 5120, 5120, 64, False),
+                  "Llama-3.1-8B diagonal pair": (1, 32, 8, 16384, 16384, 128, True)}
+# the edges of backward_sm90.cu's tiles (blocks of 192 rows at D = 64 and of
+# 128 at D = 128, over 64-row tiles) at D = 64 and 128: B, Hq, Hk, Sq, Sk,
+# causal; and a one-row tail (two 64-row tiles and one row) through
+# attention_backward
+BWD_EDGES = {"odd tiles (1,2/2,320), causal": (1, 2, 2, 320, 320, True),
+             "odd tiles (1,2/2,320)": (1, 2, 2, 320, 320, False),
+             "Sq 192 < Sk 448": (1, 2, 2, 192, 448, False),
+             "Sq 448 > Sk 192, GQA 2/1": (1, 2, 1, 448, 192, False),
+             "GQA 8/2, causal (1,8/2,448)": (1, 8, 2, 448, 448, True),
+             "B = 2 (2,4/4,320)": (2, 4, 4, 320, 320, False)}
+BWD_TAIL_S = 129
+
+
+def bwd_source(name, D):
+    """The source that runs C1/C2 launch key ``name`` at head dim ``D``."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    routed = tbwd.bwd_sm90_route(name[3:].startswith("int8"), name.endswith("-bool"),
+                                 "-window" in name, tbwd._head_dim(D))
+    return SRC_BWD_SM90 if routed else SRC_BWD
+
+
+def bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, seed):
+    """Activation-like q, k, v, a dO, and the port's flash forward's (o, lse)."""
+    import sageattention_tpu_torch as st
+    q, k, v = realistic_qkv(torch, B, Hq, Hk, max(Sq, Sk), D, seed)
+    q, k, v = q[:, :, :Sq].contiguous(), k[:, :, :Sk].contiguous(), v[:, :, :Sk].contiguous()
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    o, lse = st.flash_attention(q, k, v, is_causal=causal, return_lse=True)
+    return q, k, v, o, lse, do
+
+
+def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=False):
+    """C1 and C2 launched once each on all heads (f32 outputs), each
+    gradient held to ``attention_backward_plain`` at KERNEL_BAR on the first
+    q heads of kv head 0 and the last q head with the last kv head (or, with
+    ``every_head``, on all of them).  Returns (max_abs_err, plain ms of the
+    first sample)."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=q.shape[-1] ** -0.5, di=di)
+    pa.update(causal=causal, out_dtype=torch.float32)
+    got = tbwd.attention_backward_kernel(**pa)
+    Hq, Hk = q.shape[1], k.shape[1]
+    parts = [(slice(0, Hq), slice(0, Hk))]
+    if not every_head:
+        parts = [(slice(0, min(Hq // Hk, 2)), slice(0, 1))]
+        if parts[0][0].stop < Hq:
+            parts.append((slice(Hq - 1, Hq), slice(Hk - 1, Hk)))
+    err, plain_ms = 0.0, None
+    for hs, ks in parts:
+        sub = dict(pa, **{n: pa[n][:, hs] for n in ("q", "do", "lse2", "di")},
+                   **{n: pa[n][:, ks] for n in ("k", "v")})
+        plain, ms = timed_call(torch, lambda: tbwd.attention_backward_plain(**sub))
+        plain_ms = ms if plain_ms is None else plain_ms
+        ds = [calc_diff(a[:, hs], b) for a, b in zip(got, plain)]
+        e = max(float((a[:, hs] - b).abs().max()) for a, b in zip(got, plain))
+        err = max(err, e)
+        check(all(d <= KERNEL_BAR for d in ds),
+              f"C1/C2 vs plain, {what}, q heads {hs.start}-{hs.stop - 1}: dq/dk/dv calc_diff "
+              + "/".join(f"{d:.3e}" for d in ds) + f" <= {KERNEL_BAR}, max_abs {e:.3e}")
+    return err, plain_ms
+
+
+def bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=None, f32_out=False):
+    """C1's and C2's times on all heads, each alone (bf16 outputs, or f32
+    with ``f32_out``), their bounds, and the library's backward (C1 + C2).
+    Returns {kernel: (ms, bound)}, library_ms."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    B, Hq, Sq, D = q.shape
+    pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5, di=di)
+    pa.update(causal=causal, out_dtype=torch.float32 if f32_out else torch.bfloat16)
+    pairs = bwd_pairs(torch, B, Hq, Sq, k.shape[2], {"is_causal": causal})
+    res = {}
+    for kernel in ("C1", "C2"):
+        ms = kernel_ms(lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,)))
+        out = tbwd.attention_backward_kernel(**pa, kernels=(kernel,))
+        reads = [pa[n] for n in ("q", "k", "v", "do", "lse2", "di")]
+        res[kernel] = (ms, bwd_bound(kernel, False, pairs, pa["q"].shape[-1],
+                                     nbytes(*reads, *(x for x in out if x is not None))))
+        del out
+    lib = library_bwd_ms(torch, q, k, v, do, {"is_causal": causal, "sm_scale": D ** -0.5})
+    print(f"     C1/C2 at {what}: " + ", ".join(
+        f"{kn} {ms:.3f} ms (bound {b[0]:.3f}, {b[1]})" for kn, (ms, b) in res.items())
+          + f", C1 + C2 {res['C1'][0] + res['C2'][0]:.3f} ms, library (C1 + C2) {lib:.3f} ms, "
+          f"{pairs} kept pairs", flush=True)
+    return res, lib
+
+
+def bwd_sm90_ptxas():
+    """backward_sm90.cu's ptxas report: printed, and no spill allowed (a
+    spill serializes every wgmma)."""
+    from sageattention_tpu_torch.ops import _build
+    lines = [ln.strip() for ln in _build.build_log.get("backward_sm90", "").splitlines()
+             if "entry function" in ln or "spill" in ln or "Used" in ln or "wgmma" in ln]
+    for ln in lines:
+        print("     backward_sm90.cu ptxas: " + ln, flush=True)
+    spills = [ln for ln in lines if "spill" in ln]
+    if lines:   # a library reused from an earlier build has no report
+        check(bool(spills) and all(ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
+                                                 "0 bytes spill loads") for ln in spills)
+              and not any("wgmma" in ln for ln in lines),
+              f"backward_sm90.cu: no spill and no serialized wgmma in {len(spills)} functions")
+
+
+def run_bwd_sm90(torch, st, totals):
+    """Phase 13 (slice 9): C1 and C2 bf16 with no mask and no window on
+    ``csrc/backward_sm90.cu``, each shape counted on its own.  At the main
+    paths' shapes: ``attention_backward`` from the port's flash forward on
+    realistic inputs (one C1 and one C2 launch), C1 and C2 on all heads
+    against the plain version on the first and the last heads, their times
+    beside their bounds and the library's backward; the ring's per-pair form
+    (a given di, f32 outputs) on a CogVideoX1.5 chunk pair and a diagonal
+    Llama-3.1-8B pair, the same way; then the edge cases at D = 64 and 128
+    against the plain version on every head, and a one-row tail through
+    ``attention_backward`` against the same call on the CPU.  Returns the
+    JSON entries of the four routed launch keys."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    bwd_sm90_ptxas()
+    res, ring_text, errs = {}, [], []
+    shapes = [(lb, s, False) for lb, s in BWD_SHAPES.items()] + [
+        (lb, s, True) for lb, s in BWD_RING_PAIRS.items()]
+    for i, (label, (B, Hq, Hk, Sq, Sk, D, causal), ring) in enumerate(shapes):
+        q, k, v, o, lse, do = bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, SEED + 90 + 2 * i)
+        di = (do.float() * o.float()).sum(-1) if ring else None
+        kw = dict(di=di, out_dtype=torch.float32) if ring else {}
+        what = f"{label} ({B},{Hq}/{Hk},{Sq}x{Sk},{D}) causal={causal}" + (
+            ", given di, f32 out" if ring else "")
+        c = "-causal" if causal else ""
+        out, _ = counted_path(torch, f"{what}: attention_backward", (f"C1-bf16{c}", f"C2-bf16{c}"),
+                              {}, totals, lambda: tbwd.attention_backward(
+                                  q, k, v, None if ring else o, lse, do, sm_scale=D ** -0.5,
+                                  is_causal=causal, **kw))
+        exact_counts(what, read_counts(), {f"C1-bf16{c}": 1, f"C2-bf16{c}": 1})
+        check(all(bool(torch.isfinite(x).all()) for x in out)
+              and [tuple(x.shape) for x in out] == [tuple(q.shape), tuple(k.shape), tuple(v.shape)],
+              f"{what}: attention_backward's gradients finite, of the input shapes")
+        del out
+        err, plain_ms = bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=di)
+        errs.append(err)
+        timing, lib = bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=di, f32_out=ring)
+        if ring:
+            ring_text.append(f"{label}: C1 {timing['C1'][0]:.3f} / C2 {timing['C2'][0]:.3f} ms, "
+                             f"library {lib:.3f}")
+        else:
+            res[c] = (err, plain_ms, timing, lib, what)
+        del q, k, v, o, lse, do, di
+        torch.cuda.empty_cache()
+    for D in (64, 128):
+        for j, (label, (B, Hq, Hk, Sq, Sk, causal)) in enumerate(BWD_EDGES.items()):
+            what = f"{label}, D={D}"
+            q, k, v, o, lse, do = bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, SEED + 100 + j)
+            c = "-causal" if causal else ""
+            counted_path(torch, what, (f"C1-bf16{c}", f"C2-bf16{c}"), {}, totals,
+                         lambda: tbwd.attention_backward(q, k, v, o, lse, do, sm_scale=D ** -0.5,
+                                                         is_causal=causal))
+            errs.append(bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, every_head=True)[0])
+        q, k, v, o, lse, do = bwd_inputs(torch, 1, 4, 1, BWD_TAIL_S, BWD_TAIL_S, D, True,
+                                         SEED + 110)
+        what = f"one-row tail (1,4/1,{BWD_TAIL_S},{D}) causal through attention_backward"
+        got, _ = counted_path(torch, what, ("C1-bf16-causal", "C2-bf16-causal"), {}, totals,
+                              lambda: tbwd.attention_backward(q, k, v, o, lse, do,
+                                                              sm_scale=D ** -0.5, is_causal=True,
+                                                              out_dtype=torch.float32))
+        ref = tbwd.attention_backward(*(x.cpu() for x in (q, k, v, o, lse, do)),
+                                      sm_scale=D ** -0.5, is_causal=True, out_dtype=torch.float32)
+        ds = [calc_diff(a.cpu(), b) for a, b in zip(got, ref)]
+        errs.append(max(float((a.cpu() - b).abs().max()) for a, b in zip(got, ref)))
+        check(all(d <= KERNEL_BAR for d in ds), f"{what} vs the same call on the CPU (the plain "
+              "version): dq/dk/dv calc_diff " + "/".join(f"{d:.3e}" for d in ds)
+              + f" <= {KERNEL_BAR}")
+    entries = []
+    for c, (err, plain_ms, timing, lib, what) in res.items():
+        for kernel in ("C1", "C2"):
+            ms, bound = timing[kernel]
+            entries.append({"name": f"{kernel}-bf16{c}", "route": "cuda", "source": SRC_BWD_SM90,
+                            "replaces": TPU_KERNELS[kernel], "launches": 0,
+                            "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
+                            "shape": f"{what}; plain (C1 + C2) on the first and last q heads; "
+                                     "library: C1 + C2; " + "; ".join(ring_text)})
+    return entries
 
 
 # ---------------------------------------------------------------- configs ----

@@ -27,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "attention_ring", "attention_lowbit", "flash_sm90", "decode", "backward")
+           "attention_ring", "attention_lowbit", "flash_sm90", "decode", "backward",
+           "backward_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -58,6 +59,10 @@ _DECODE_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 8 + [_P] * 5 + [_I] * 16 + [_F] + 
 # sinks), (fold, dk_fin, dq_fin), stream
 _BWD_ARGS = [_I] * 3 + [_P] * 9 + [_LL] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_F] * 3 + [_P]
 
+# (which, D), (q, k, v, dO, lse2, di), (dk, dv, dq), (out_f32, B, Hq, Hk, Sqp,
+# Skp, causal), (fold, dk_fin, dq_fin), stream
+_BWD_SM90_ARGS = [_I] * 2 + [_P] * 9 + [_I] * 7 + [_F] * 3 + [_P]
+
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
     "sage_prep_kv": ("prep_kv", [_I, _I, _I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
@@ -78,6 +83,7 @@ SIGNATURES = {
     "sage_flash_fwd": ("flash_sm90", _FLASH_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
+    "sage_bwd_sm90": ("backward_sm90", _BWD_SM90_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "quant": "sage_quant_error_string",
@@ -89,7 +95,8 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_lowbit": "sage_attn_lowbit_error_string",
                  "flash_sm90": "sage_flash_error_string",
                  "decode": "sage_decode_error_string",
-                 "backward": "sage_bwd_error_string"}
+                 "backward": "sage_bwd_error_string",
+                 "backward_sm90": "sage_bwd_sm90_error_string"}
 
 _lock = threading.Lock()
 _libs: dict = {}

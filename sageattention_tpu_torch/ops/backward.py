@@ -26,8 +26,12 @@ not NaN.
 sequences to the kernel's 64-row tiles and the head dim to 64/128/256,
 padded q rows at lse2 = 3e38 so their P is 0; ``D_i``; the int8 codes;
 the GQA group sum in f32) around :func:`attention_backward_kernel` (CUDA
-tensors: ``csrc/backward.cu``) or :func:`attention_backward_plain` (CPU
-tensors), which walks the same 64-row tiles.  The two kernels are counted
+tensors) or :func:`attention_backward_plain` (CPU tensors).  On the card
+the bf16 configurations with no mask and no window at head dims 64 and 128
+(:func:`bwd_sm90_route`) run ``csrc/backward_sm90.cu`` (TMA, ``wgmma``,
+warpgroups taking turns), every other one ``csrc/backward.cu``; the plain
+version has no running max and no per-tile rounding, so it stands for
+both whatever their tiles.  The two kernels are counted
 per configuration in ``attention_backward_kernel.launches`` (``LAUNCHES``)
 under keys
 ``C1-<bf16|int8>[-causal|-window][-bool]`` and the same for C2.
@@ -154,12 +158,28 @@ def attention_backward_plain(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, cau
 LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
 
 
+def bwd_sm90_route(quantized: bool, masked: bool, window: int, D: int) -> bool:
+    """Does C1/C2 in this configuration run ``csrc/backward_sm90.cu``?  The
+    bf16 form with no mask and no window, causal or not, at head dims 64
+    and 128 (``D`` padded); the int8 S-recompute, the window, the bool mask
+    and head dim 256 stay on ``csrc/backward.cu``."""
+    return not quantized and not masked and not window and D in (64, 128)
+
+
+def _aligned16(x):
+    """``x`` itself, or a copy when its base is not 16-byte aligned (TMA)."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
+
+
 def attention_backward_kernel(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, causal,
                               window=0, sinks=0, qs=None, ks=None, mask=None,
                               out_dtype=torch.float32, kernels=("C1", "C2")):
     """Launch C1 and C2 on CUDA tensors; same arguments and returns as
-    :func:`attention_backward_plain`.  ``kernels`` may name one of the two
-    (to time it alone); the gradients of the other come back as None."""
+    :func:`attention_backward_plain`.  A configuration that
+    :func:`bwd_sm90_route` takes launches ``sage_bwd_sm90`` and raises if it
+    cannot, with no fallback; the rest launch ``sage_attn_bwd``, under the
+    same launch keys.  ``kernels`` may name one of the two (to time it
+    alone); the gradients of the other come back as None."""
     B, Hq, Sqp, D = q.shape
     Hk, Skp = k.shape[1], k.shape[2]
     quant = qs is not None
@@ -187,13 +207,21 @@ def attention_backward_kernel(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, ca
         m_strides, Hm = m.stride()[:3], m.shape[1]
         live = mask_tile_table(m)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
-    common = [q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
-              di.data_ptr(), ptr(qs), ptr(ks), ptr(m), *m_strides, Hm, ptr(live),
-              dk.data_ptr(), dv.data_ptr(), dq.data_ptr(), int(out_f32), B, Hq, Hk, Sqp, Skp,
-              int(causal), window, sinks, _F32(fold), _F32(dk_fin), _F32(dq_fin)]
+    outs = [dk.data_ptr(), dv.data_ptr(), dq.data_ptr()]
+    if bwd_sm90_route(quant, mask is not None, window, D):
+        q, k, v, do, lse2, di = (_aligned16(x) for x in (q, k, v, do, lse2, di))
+        fn = "sage_bwd_sm90"
+        common = [D, *(x.data_ptr() for x in (q, k, v, do, lse2, di)), *outs, int(out_f32), B,
+                  Hq, Hk, Sqp, Skp, int(causal), _F32(fold), _F32(dk_fin), _F32(dq_fin)]
+    else:
+        fn = "sage_attn_bwd"
+        common = [int(quant), D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse2.data_ptr(), di.data_ptr(), ptr(qs), ptr(ks), ptr(m), *m_strides, Hm,
+                  ptr(live), *outs, int(out_f32), B, Hq, Hk, Sqp, Skp, int(causal), window,
+                  sinks, _F32(fold), _F32(dk_fin), _F32(dq_fin)]
     for which, kernel in ((1, "C1"), (2, "C2")):
         if kernel in kernels:
-            _build.call("sage_attn_bwd", q.device, which, int(quant), D, *common)
+            _build.call(fn, q.device, which, *common)
             LAUNCHES[config_name(kernel, quant, causal, window, mask is not None)] += 1
     dq = dq.to(out_dtype) if "C2" in kernels else None
     if "C1" not in kernels:

@@ -23,6 +23,16 @@ CogVideoX1.5 (1, 48, 17776, 64), Llama-70B GQA causal (1, 64/8, 16384,
   host's dispatch while the card waits), and the host time from the call's
   start to its first kernel launch;
 
+the time (ms) of C1 and C2, each alone, in the forms that stay on
+``backward.cu`` (``-int8`` at CogVideoX1.5 and ``-int8-causal``,
+``-window`` with a 4,096-token window and ``-causal-bool`` with a
+left-padding mask at Llama-3-8B width, (1, 32/8, 8192, 128)) and then the
+bf16 forms that ``backward_sm90.cu`` takes (``-bf16`` at CogVideoX1.5,
+``-bf16-causal`` at Llama-3-8B width), from the port's flash forward on the
+same inputs, with the library's backward (one ``torch.autograd.grad``
+through ``F.scaled_dot_product_attention``, ``C1+C2 library``) at both
+shapes;
+
 and, for the training steps of ``chip_smoke.py``'s phase 9 with the port's
 exact attention (``flash_dot_product_attention``: the B4 forward and the
 bf16 C1/C2 backward), the ms per Adam step at Llama-3-8B width (2 blocks,
@@ -47,6 +57,15 @@ CASES = {"cog": (1, 48, 48, 17776, 64, False), "llama": (1, 64, 8, 16384, 128, T
 # faster after the old B4 than before it, with the same code)
 KERNELS = ("B1", "B2", "B5-fp8-fusedq", "B6-static", "B-pvbf16", "B4")
 B4_FORMS = {"B4-fp4": dict(p_sim_fp4=True), "B4-window": dict(window=4096)}
+# C1/C2: B, Hq, Hk, S, D, causal; the forms that stay on backward.cu first,
+# the routed bf16 forms last (as B4 above)
+BWD_SHAPES = {"cog": (1, 48, 48, 17776, 64, False), "llama8k": (1, 32, 8, 8192, 128, True)}
+BWD_FORMS = (("cog", "int8", dict(quantized=True)),
+             ("llama8k", "int8-causal", dict(quantized=True)),
+             ("llama8k", "bf16-window", dict(window=4096)),
+             ("llama8k", "bf16-causal-bool", dict(mask=True)),
+             ("cog", "bf16", {}),
+             ("llama8k", "bf16-causal", {}))
 
 
 def one_tree(tree: str) -> dict:
@@ -83,7 +102,43 @@ def one_tree(tree: str) -> dict:
             res[f"{shape} sageattn parts"] = call_parts(torch, _build, call)
             del q, k, v
     torch.cuda.empty_cache()
+    with torch.no_grad():
+        res.update(bwd_rows(torch, cs, st))
+    torch.cuda.empty_cache()
     res.update(train_steps(torch, cs))
+    return res
+
+
+def bwd_rows(torch, cs, st):
+    """C1's and C2's kernel ms, each alone, in each form of ``BWD_FORMS``
+    (bf16 outputs), and the library's backward at each shape."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.utils.testing import time_fn
+    inputs, res = {}, {}
+    for shape, (B, Hq, Hk, S, D, causal) in BWD_SHAPES.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 1)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda").bfloat16()
+        o, lse = st.flash_attention(q, k, v, is_causal=causal, return_lse=True)
+        inputs[shape] = (q, k, v, o, lse, do)
+    for shape, form, opt in BWD_FORMS:
+        B, Hq, Hk, S, D, causal = BWD_SHAPES[shape]
+        q, k, v, o, lse, do = inputs[shape]
+        mask = None
+        if opt.get("mask"):   # a left-padded prompt: its first S / 8 keys are padding
+            mask = (torch.arange(S, device="cuda") >= S // 8).expand(B, 1, S, S)
+        pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5,
+                          quantized=opt.get("quantized", False), attn_mask=mask)
+        pa.update(causal=causal, window=opt.get("window", 0), out_dtype=torch.bfloat16)
+        for kernel in ("C1", "C2"):
+            res[f"{shape} {kernel}-{form}"] = time_fn(
+                lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,)),
+                warmup=2, reps=5) * 1e3
+        del pa
+    for shape, (B, Hq, Hk, S, D, causal) in BWD_SHAPES.items():
+        q, k, v, o, lse, do = inputs[shape]
+        res[f"{shape} C1+C2 library"] = cs.library_bwd_ms(
+            torch, q, k, v, do, {"is_causal": causal, "sm_scale": D ** -0.5})
     return res
 
 
