@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with one Hopper card:
 Phases (any failure exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit;
-2. build: compiles the port's CUDA kernels from ``sageattention_tpu_torch/csrc``;
+2. build: compiles the port's CUDA kernels from ``sageattention_tpu_torch/csrc``
+   and prints ``ptxas``'s registers and spills of ``flash_sm90.cu`` and
+   ``attention_sm90.cu`` (a spill fails the run);
 3. main path, with every kernel's launch count set to 0 just before and read
    just after.  At the full widths of CogVideoX1.5 joint attention
    (1, 48, 17776, 64) and a Llama-70B GQA causal prefill (64/8 heads, 16,384
@@ -151,7 +153,25 @@ Phases (any failure exits non-zero):
    Sk, GQA 4, a batch of two, and a one-row tail through
    ``attention_backward`` against the same call on the CPU.  Phases 9f,
    10b and 10d replay what the training and ring paths launched on the
-   same route.
+   same route;
+14. B1 on a bf16 Q at head dims 64 and 128 on its Hopper kernel
+   (``csrc/attention_sm90.cu``; slice 10) and B4-float at 64 and 128 on
+   ``csrc/flash_sm90.cu``'s biased instantiations (``ptxas``'s report for
+   both sources is printed after the build, and a spill fails the run),
+   each path counted on its own: ``sageattn`` at CogVideoX1.5, Llama-70B GQA causal, HunyuanVideo
+   and Llama-3.1-8B at 131,072 tokens causal (one B1 launch each), B1 on
+   all heads against its plain version on the sampled heads, its time
+   beside its bound; the MPT-7B ALiBi flash (2, 32, 2048, 128, causal)
+   through ``attention_call`` against the f32 oracle and its plain
+   version, its time beside its bound (the bias tiles a causal launch
+   reads) and the library's biased call; then the edge cases of both at
+   head dims 64 and 128 on every head (tails off the tiles, ``kv_len <
+   Sk``, Sq != Sk, GQA 8/2, causal, NHD strides, sliced heads, a one-row
+   tail; for B4-float one bias for all heads, a zero-stride broadcast
+   bias, a misaligned one, -inf entries and a row with no live key), and
+   x60 inputs through ``sageattn`` whose ``lmin`` makes the call rerun
+   online (B2).  The skip ratios of phase 7 time dense B1 on
+   ``attention.cuh``'s body, which their masked forms run on.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -187,6 +207,7 @@ TPU_KERNELS = {
 SRC_PREP = "sageattention_tpu_torch/csrc/prep_kv.cu"
 SRC_QUANT = "sageattention_tpu_torch/csrc/quant.cu"
 SRC_ATTN = "sageattention_tpu_torch/csrc/attention.cuh"
+SRC_ATTN_SM90 = "sageattention_tpu_torch/csrc/attention_sm90.cu"
 COS_BAR = 0.999          # cossim of an int8/bf16-PV mode vs the port's flash
 FP8_BAR = 5e-3           # calc_diff of an fp8-PV mode vs flash (e4m3 P carries ~2.5e-3)
 ORACLE_BAR = 2e-5        # calc_diff of flash vs the f32 oracle (tests/test_attention.py)
@@ -250,9 +271,8 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for line in _build.build_log.get("flash_sm90", "").splitlines():   # B4's registers, spills
-        if "entry function" in line or "spill" in line or "Used" in line:
-            print("     flash_sm90.cu ptxas: " + line.strip(), flush=True)
+    for source in ("flash_sm90", "attention_sm90"):   # registers; a spill fails the run
+        sm90_ptxas(source)
 
     def timed_phase(what, fn, *args):
         t = time.time()
@@ -275,6 +295,9 @@ def main() -> int:
     # inference mode
     with torch.no_grad():
         kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
+    with torch.inference_mode():   # phase 14's rows replace the earlier ones of their keys
+        new = timed_phase("phase 14", run_fwd_sm90, torch, st, totals)
+    kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
     for e in kernels:   # launches over every counted path
         e["launches"] = totals.get(e["name"], 0)
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
@@ -697,21 +720,42 @@ def window_phase(torch, st, seen, totals, ratios):
 
 def kernel_ratio(torch, seen, key, base, ratios, label, bar):
     """Kernel time of ``key`` over ``base`` on the inputs the path gave them,
-    timed in turns in one call."""
+    timed in turns in one call.  Both sides run on one body: dense B1 is
+    timed on ``attention.cuh``'s (:func:`on_old_body`), which its masked
+    and windowed forms run on, and, as information, on its Hopper kernel."""
     from sageattention_tpu_torch.ops.attention import attention_kernel
     from sageattention_tpu_torch.utils.testing import time_fn
     ts = {}
     for _ in range(2):
         for name in (base, key):
             args, kw = seen[name]
-            ts.setdefault(name, []).append(
-                time_fn(lambda: attention_kernel(*args, **kw), warmup=2, reps=10) * 1e3)
+            timed = lambda: time_fn(lambda: attention_kernel(*args, **kw),  # noqa: E731
+                                    warmup=2, reps=10) * 1e3
+            ts.setdefault(name, []).append(on_old_body(timed) if name == "B1" else timed())
+            if name == "B1":
+                ts.setdefault("B1 sm90", []).append(timed())
     a, b = min(ts[key]), min(ts[base])
     ratios[label] = {key: a, base: b, "ratio": a / b}
     print(f"     {key} {a:.3f} ms vs {base} {b:.3f} ms on the same inputs: ratio {a / b:.3f}",
           flush=True)
+    if "B1 sm90" in ts:
+        c = min(ts["B1 sm90"])
+        print(f"     (dense B1 on attention.cuh {b:.3f} ms; on attention_sm90.cu {c:.3f} ms: "
+              f"{key} over it {a / c:.3f})", flush=True)
     if bar is not None:
         check(a / b < bar, f"{key} / {base} = {a / b:.3f} < {bar}")
+
+
+def on_old_body(fn):
+    """``fn()`` with B1 sent to ``attention.cuh``'s body (the route to
+    ``attention_sm90.cu`` turned off for the call)."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    real = tatt.b1_sm90_route
+    tatt.b1_sm90_route = lambda *a: False
+    try:
+        return fn()
+    finally:
+        tatt.b1_sm90_route = real
 
 
 def varlen_phase(torch, st, seen, totals):
@@ -793,12 +837,9 @@ def mask_phase(torch, st, seen, totals, ratios):
     from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
 
     # MPT-7B: 32 heads, hd 128, ALiBi slopes 2^(-8(h+1)/32), causal, S = 2048
-    B, H, S, D = 2, 32, 2048, 128
+    B, H, S, D = MPT_7B
     q, k, v = realistic_qkv(torch, B, H, H, S, D, SEED + 23)
-    slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda") / H)
-    pos = torch.arange(S, device="cuda", dtype=torch.float32)
-    alibi = (-slopes[:, None, None] * (pos[:, None] - pos[None, :]).clamp_min(0))
-    bias = alibi[None].expand(B, H, S, S).contiguous()            # f32, 1 GiB
+    bias = alibi_bias(torch, B, H, S)                             # f32, 1 GiB
     calls = {   # S < 4096: the int8 modes take bf16 compute (B3), fp8 stays native
         "sageattn (auto: online)": lambda: st.sageattn(q, k, v, is_causal=True, attn_mask=bias),
         "sageattn static": lambda: core._sage_attention(
@@ -824,7 +865,7 @@ def mask_phase(torch, st, seen, totals, ratios):
     for name, fn in calls.items():
         t = time_fn(fn, warmup=1, reps=5) * 1e3
         print(f"     MPT-7B ALiBi ({B},{H},{S},{D}) causal: {name} {t:.3f} ms", flush=True)
-    del bias, alibi
+    del bias
 
     # a left-padded Llama-3-8B-width batch: its pad query rows see no key
     B, H, Hk, S, D = 4, 32, 8, 4096, 128
@@ -1031,10 +1072,11 @@ def attn_kernel_entry(torch, name, args, kw, launches, label=None):
         check(ok, f"{label or name} vs plain on q heads {heads[-1]} of {shape}{note}: "
                   f"calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
     ms = time_fn(lambda: attention_kernel(*args, **kw), warmup=2, reps=5) * 1e3
-    moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
-                   *(x for x in kw.values() if isinstance(x, torch.Tensor)),
-                   *(x for x in full if x is not None))
     pairs = live_pairs(torch, args, kw)
+    bias = kw.get("attn_mask") if args[3].masked == "float" else None
+    moved = nbytes(*(x for x in args if isinstance(x, torch.Tensor)),
+                   *(x for n, x in kw.items() if isinstance(x, torch.Tensor) and x is not bias),
+                   *(x for x in full if x is not None)) + bias_read_bytes(bias, pairs, q)
     bound = attn_bound_pairs(args[3], pairs, q.shape[-1], moved)
     lib = None
     if name.startswith("B4-"):
@@ -1042,7 +1084,31 @@ def attn_kernel_entry(torch, name, args, kw, launches, label=None):
     elif name == "B4":
         lib = library_ms(torch, q, k, args[2], args[3].causal)
     return ext_entry(launches, label or name, err, ms, plain_ms, bound, lib,
-                     shape + f", {pairs} live pairs; plain on q heads {', '.join(heads)}")
+                     shape + f", {pairs} live pairs; plain on q heads {', '.join(heads)}",
+                     src=fwd_source(args[3], q))
+
+
+def bias_read_bytes(bias, pairs, q):
+    """Bytes of a float bias that a launch must read: 4 for each kept
+    (query, key) pair of each batch and head the bias holds apart (a zero
+    batch or head stride is one slice; a causal launch reads the tiles on
+    and below the diagonal only)."""
+    if bias is None:
+        return 0
+    nb = 1 if bias.shape[0] > 1 and bias.stride(0) == 0 else bias.shape[0]
+    nh = 1 if bias.shape[1] > 1 and bias.stride(1) == 0 else bias.shape[1]
+    return 4 * pairs * nb * nh // (q.shape[0] * q.shape[1])
+
+
+def fwd_source(cfg, q):
+    """The source that runs a forward launch of ``cfg`` on ``q``."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    Sq, D = q.shape[2], q.shape[-1]
+    if tatt.flash_sm90_route(cfg, Sq, D):
+        return SRC_FLASH
+    if tatt.b1_sm90_route(cfg, Sq, D, q.dtype):
+        return SRC_ATTN_SM90
+    return SRC_LOWBIT if cfg.p_sim_fp4 else SRC_ATTN
 
 
 def ext_kernel_checks(torch, seen, totals):
@@ -1080,9 +1146,7 @@ def static_kept_rows(torch, a, b, Sq):
     return kept, f" ({int(safe.sum())} of {safe.numel()} tiles kept by the static check)"
 
 
-def ext_entry(launches, name, err, ms, plain_ms, bound, lib, shape):
-    src = (SRC_QUANT if name.startswith("A") else SRC_FLASH if name.split()[0] == "B4"
-           else SRC_ATTN)
+def ext_entry(launches, name, err, ms, plain_ms, bound, lib, shape, src=SRC_QUANT):
     rep = TPU_KERNELS["A6"] if name.startswith("A") else TPU_KERNELS["B"]
     libs = "" if lib is None else f", library {lib:.3f} ms"
     print(f"     {name}: max_abs_err {err:.3e}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -3034,12 +3098,12 @@ def long_b1_check(torch, what, args, kw, timer=trials_ms):
     """A long B1 launch on all heads against its plain version on the
     sampled heads at full length (the plain version walks query-row chunks:
     no S x S matrix), then its kernel time (by ``timer``: 3 trials of 3
-    launches)."""
+    launches).  Returns (max_abs_err, plain ms, kernel ms, bound)."""
     from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
     from sageattention_tpu_torch.utils.testing import calc_diff
     q, k = args[0], args[1]
     out = attention_kernel(*args, **kw)
-    plain_ms, heads = None, []
+    plain_ms, heads, errs = None, [], []
     for sub, skw, hs in sampled_heads(args, kw):
         a = heads_of(out, hs)
         b, ms = timed_call(torch, lambda: attention_plain(*sub, **skw))
@@ -3047,6 +3111,7 @@ def long_b1_check(torch, what, args, kw, timer=trials_ms):
         kept, note = static_kept_rows(torch, a, b, q.shape[2])
         d = calc_diff(a[0][kept], b[0][kept])
         err = float((a[0][kept].float() - b[0][kept].float()).abs().max())
+        errs.append(err)
         heads.append(f"{hs.start}-{hs.stop - 1}")
         check(d < KERNEL_BAR, f"{what} B1 vs plain on q heads {heads[-1]}{note}: calc_diff "
                               f"{d:.3e} < {KERNEL_BAR}, max_abs {err:.3e}")
@@ -3058,7 +3123,8 @@ def long_b1_check(torch, what, args, kw, timer=trials_ms):
     bound = attn_bound(args[3], q, k, moved)
     print(f"     {what} B1 at {tuple(q.shape)} Hk={k.shape[1]} causal={args[3].causal}: kernel "
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms on q heads {heads[0]}, bound "
-          f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+          f"{bound[0]:.3f} ms ({bound[1]}), {fwd_source(args[3], q)}", flush=True)
+    return max(errs), plain_ms, ms, bound
 
 
 def hunyuan_phase(torch, st, totals):
@@ -3598,20 +3664,20 @@ def bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=None, f32_out=False)
     return res, lib
 
 
-def bwd_sm90_ptxas():
-    """backward_sm90.cu's ptxas report: printed, and no spill allowed (a
+def sm90_ptxas(source="backward_sm90"):
+    """A Hopper source's ptxas report: printed, and no spill allowed (a
     spill serializes every wgmma)."""
     from sageattention_tpu_torch.ops import _build
-    lines = [ln.strip() for ln in _build.build_log.get("backward_sm90", "").splitlines()
+    lines = [ln.strip() for ln in _build.build_log.get(source, "").splitlines()
              if "entry function" in ln or "spill" in ln or "Used" in ln or "wgmma" in ln]
     for ln in lines:
-        print("     backward_sm90.cu ptxas: " + ln, flush=True)
+        print(f"     {source}.cu ptxas: " + ln, flush=True)
     spills = [ln for ln in lines if "spill" in ln]
     if lines:   # a library reused from an earlier build has no report
         check(bool(spills) and all(ln.startswith("0 bytes stack frame, 0 bytes spill stores, "
                                                  "0 bytes spill loads") for ln in spills)
               and not any("wgmma" in ln for ln in lines),
-              f"backward_sm90.cu: no spill and no serialized wgmma in {len(spills)} functions")
+              f"{source}.cu: no spill and no serialized wgmma in {len(spills)} functions")
 
 
 def run_bwd_sm90(torch, st, totals):
@@ -3628,7 +3694,7 @@ def run_bwd_sm90(torch, st, totals):
     JSON entries of the four routed launch keys."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff
-    bwd_sm90_ptxas()
+    sm90_ptxas("backward_sm90")
     res, ring_text, errs = {}, [], []
     shapes = [(lb, s, False) for lb, s in BWD_SHAPES.items()] + [
         (lb, s, True) for lb, s in BWD_RING_PAIRS.items()]
@@ -3692,6 +3758,206 @@ def run_bwd_sm90(torch, st, totals):
                             "shape": f"{what}; plain (C1 + C2) on the first and last q heads; "
                                      "library: C1 + C2; " + "; ".join(ring_text)})
     return entries
+
+
+# ------------------------------- slice 10: B1 and B4-float on Hopper ----
+
+# B1's shapes on the main paths: B, Hq, Hk, S, D, causal
+B1_SHAPES = {"CogVideoX1.5": COG_SHAPE + (False,),
+             "Llama-70B GQA": (1, 64, 8, 16384, 128, True),
+             "HunyuanVideo": HUNYUAN_SHAPE + (False,),
+             "Llama-3.1-8B 128K": LLAMA_128K + (True,)}
+MPT_7B = (2, 32, 2048, 128)   # B, H, S, D: ALiBi, causal
+
+
+def alibi_bias(torch, B, H, S):
+    """MPT-7B's ALiBi: slopes 2^(-8 (h + 1) / H), -slope * (row - col) at
+    and below the diagonal, f32 [B, H, S, S] (1 GiB at MPT-7B's shape)."""
+    slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda") / H)
+    pos = torch.arange(S, device="cuda", dtype=torch.float32)
+    alibi = (-slopes[:, None, None] * (pos[:, None] - pos[None, :]).clamp_min(0))
+    return alibi[None].expand(B, H, S, S).contiguous()
+
+
+def b1_phase(torch, st, totals):
+    """B1 through ``sageattn`` at each of ``B1_SHAPES``, each call counted
+    on its own (one B1 launch, on attention_sm90.cu), then the launch on
+    all heads against its plain version on the sampled heads, its time and
+    bound.  Returns B1's JSON entry (CogVideoX1.5's numbers)."""
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for i, (label, (B, H, Hk, S, D, causal)) in enumerate(B1_SHAPES.items()):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 120 + i)
+        what = f"{label} ({B},{H}/{Hk},{S},{D}) causal={causal}"
+        call = lambda: st.sageattn(q, k, v, is_causal=causal)  # noqa: E731
+        out, rec = counted_path(torch, f"{what} sageattn", ("B1",), {}, totals, call)
+        exact_counts(f"{what} sageattn", read_counts(), {"B1": 1, "B2": 0})
+        check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+              f"{what} sageattn: finite output {tuple(out.shape)}")
+        del out
+        args, kw = rec["B1"]
+        check(fwd_source(args[3], args[0]) == SRC_ATTN_SM90,
+              f"{what}: B1 ran on {SRC_ATTN_SM90}")
+        long = S > 100_000
+        timer = (lambda fn: time_once(torch, fn)) if causal and long else (
+            (lambda fn: trials_ms(torch, fn)) if long else kernel_ms)
+        err, plain_ms, ms, bound = long_b1_check(torch, what, args, kw,
+                                                 timer=lambda torch, fn: timer(fn))
+        call_ms = timer(call) if not long else None
+        if call_ms is not None:
+            print(f"     {what}: sageattn {call_ms:.3f} ms a call", flush=True)
+        res[label] = (err, plain_ms, ms, bound, call_ms)
+        del q, k, v, args, kw, rec
+        torch.cuda.empty_cache()
+    err, plain_ms, ms, bound, _ = res["CogVideoX1.5"]
+    return {"name": "B1", "route": "cuda", "source": SRC_ATTN_SM90,
+            "replaces": TPU_KERNELS["B"], "launches": 0,
+            "max_abs_err": max(r[0] for r in res.values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+            "shape": f"{COG_SHAPE}; plain on q head 0; "
+                     + "; ".join(f"{lb}: {r[2]:.3f} ms, bound {r[3][0]:.3f}"
+                                 for lb, r in res.items())
+                     + f"; D = 256 and f32/f16 Q on {SRC_ATTN}"}
+
+
+def biased_flash_phase(torch, totals):
+    """B4-float at MPT-7B's shape with its ALiBi bias, counted on its own,
+    against the f32 oracle on two heads and its plain version on the
+    sampled heads; its time, the bound over the bias tiles a causal launch
+    reads, and the library's biased call.  Returns its JSON entry."""
+    from sageattention_tpu_torch.ops.attention import attention_call
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    B, H, S, D = MPT_7B
+    q, k, v = realistic_qkv(torch, B, H, H, S, D, SEED + 23)
+    bias = alibi_bias(torch, B, H, S)
+    cfg = flash_cfg(torch, D, True, masked="float")
+    what = f"MPT-7B ALiBi ({B},{H},{S},{D}) causal"
+    out, rec = counted_path(torch, f"{what} flash", ("B4-float",), {}, totals,
+                            lambda: attention_call(q, k, v, attn_mask=bias, cfg=cfg)[0])
+    exact_counts(what, read_counts(), {"B4-float": 1})
+    d = max(calc_diff(out[b, h], masked_oracle(torch, q[b, h], k[b, h], v[b, h],
+                                               band_keep(torch, S, 0, S), bias[b, h]))
+            for b, h in ((0, 0), (1, H - 1)))
+    check(d < ORACLE_BAR, f"{what}: biased flash vs f32 oracle on 2 heads: {d:.3e} < "
+                          f"{ORACLE_BAR}")
+    args, kw = rec["B4-float"]
+    check(fwd_source(args[3], args[0]) == SRC_FLASH, f"{what}: B4-float ran on {SRC_FLASH}")
+    return attn_kernel_entry(torch, "B4-float", args, kw, 0)
+
+
+def _edge_qkv(torch, g, B, Hq, Hk, Sq, Sk, D):
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    q, k, v = rn(B, Hq, Sq, D), rn(B, Hk, Sk, D), rn(B, Hk, Sk, D)
+    k[..., 3] += 2.0
+    return tuple(x.bfloat16() for x in (q, k, v))
+
+
+def fwd_sm90_edges(torch):
+    """B1 and B4-float on their Hopper kernels at head dims 64 and 128, each
+    against its plain version on every head (lmin too for B1): lengths off
+    the 64-row tiles, the block's rows and the kv tile, ``kv_len < Sk``, Sq
+    != Sk, GQA 8/2, causal, NHD strides, sliced heads of a batch of two and
+    a one-row tail block; for B4-float one bias for all heads, a
+    zero-stride broadcast bias, a misaligned one (rows of 1001 floats: the
+    wrapper pads a copy), and -inf entries with a row that sees no key.
+    Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 130)
+    nhd_view = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    errs = []
+
+    def hold(what, args, kw):
+        a = attention_kernel(*args, **kw)
+        b = attention_plain(*args, **kw)
+        kept, note = static_kept_rows(torch, a, b, args[0].shape[2])
+        live = (b[1] > -1e19) & kept
+        d = calc_diff(a[0][live], b[0][live])
+        e = float((a[0].float() - b[0].float()).abs().max())
+        dl = float((a[1][live] - b[1][live]).abs().max())
+        errs.append(e)
+        check(d < KERNEL_BAR and dl < LSE_BAR and bool(torch.equal(a[0][~live], b[0][~live]))
+              and fwd_source(args[3], args[0]) in (SRC_FLASH, SRC_ATTN_SM90),
+              f"{what} vs plain on every head{note}: calc_diff {d:.3e} < {KERNEL_BAR}, max_abs "
+              f"{e:.3e}, lse {dl:.2e} < {LSE_BAR}, rows with no live key equal")
+
+    for D in (64, 128):
+        tail = 64 * (3 if D == 64 else 2) + 1   # one row past the first block
+        # (label, B, Hq, Hk, Sq, Sk, causal, kv_len, nhd, sliced)
+        cases = [("unaligned (1,4/2,1000)", 1, 4, 2, 1000, 1000, False, 0, False, False),
+                 ("GQA 8/2, causal (1,8/2,1000)", 1, 8, 2, 1000, 1000, True, 0, False, False),
+                 ("Sq 700 != Sk 1000", 1, 4, 2, 700, 1000, False, 0, False, False),
+                 ("kv_len 900 of Sk 1000", 1, 4, 2, 1000, 1000, False, 900, False, False),
+                 ("NHD strides, causal (1,4/2,1000)", 1, 4, 2, 1000, 1000, True, 0, True, False),
+                 ("B = 2, q heads 1-4 of 8, kv heads 2-3 of 4, 1100", 2, 8, 4, 1100, 1100, False,
+                  0, False, True),
+                 (f"one-row tail, causal (1,2/1,{tail})", 1, 2, 1, tail, tail, True, 0, False,
+                  False)]
+        for label, B, Hq, Hk, Sq, Sk, causal, kv_len, nhd, sliced in cases:
+            q, k, v = _edge_qkv(torch, g, B, Hq, Hk, Sq, Sk, D)
+            if nhd:
+                q, k, v = (nhd_view(x) for x in (q, k, v))
+            if sliced:
+                q, k, v = q[:, 1:5], k[:, 2:4], v[:, 2:4]
+            # B1 on the quantizers' codes (Q stays a strided bf16 view)
+            cfg = dataclasses.replace(attn_cfg(torch, "B1", D, causal), kv_len=kv_len)
+            xs, kw = fused_args(torch, q, k, v, True)
+            hold(f"B1 edge {label}, D={D}", (*xs, cfg), kw)
+            # B4-float: a bias per head with a -inf column and a dead row
+            bias = torch.randn(B, q.shape[1], Sq, Sk, generator=g, device="cuda")
+            bias[..., 5] = float("-inf")
+            bias[:, :, Sq // 2] = float("-inf")
+            cfg = dataclasses.replace(flash_cfg(torch, D, causal, masked="float", kv_len=kv_len),
+                                      emit_lse=True)
+            hold(f"B4-float edge {label}, D={D}", (q, k, v, cfg), {"attn_mask": bias})
+        q, k, v = _edge_qkv(torch, g, 2, 4, 4, 700, 700, D)
+        one = torch.randn(1, 1, 700, 700, generator=g, device="cuda")
+        for label, bias in (("one bias for all heads (Hm = 1)", one.expand(2, 1, 700, 700)
+                             .contiguous()),
+                            ("a zero-stride broadcast bias", one.expand(2, 4, 700, 700))):
+            cfg = dataclasses.replace(flash_cfg(torch, D, True, masked="float"), emit_lse=True)
+            hold(f"B4-float edge {label}, causal (2,4/4,700), D={D}", (q, k, v, cfg),
+                 {"attn_mask": bias})
+        q, k, v = _edge_qkv(torch, g, 1, 4, 2, 700, 1001, D)
+        cfg = dataclasses.replace(flash_cfg(torch, D, False, masked="float"), emit_lse=True)
+        hold(f"B4-float edge misaligned bias rows (700 x 1001), D={D}", (q, k, v, cfg),
+             {"attn_mask": torch.randn(1, 4, 700, 1001, generator=g, device="cuda")})
+    return max(errs)
+
+
+def b1_rerun_phase(torch, st, totals):
+    """x60 inputs through ``sageattn`` at head dims 64 and 128: B1 runs on
+    attention_sm90.cu, its lmin falls below 2^-100 and the call reruns
+    online (B2), and B1's lmin keeps the same tiles as the plain
+    version's."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    g = torch.Generator(device="cuda").manual_seed(SEED + 131)
+    for D in (64, 128):
+        x = [(torch.randn(1, h, 4096, D, generator=g, device="cuda") * 60).bfloat16()
+             for h in (8, 2, 2)]
+        what = f"x60 (1,8/2,4096,{D}) sageattn"
+        out, rec = counted_path(torch, what, ("B1", "B2"), {}, totals, lambda: st.sageattn(*x))
+        exact_counts(what, read_counts(), {"B1": 1, "B2": 1})
+        check(bool(torch.isfinite(out).all()), f"{what}: finite output after the rerun")
+        args, kw = rec["B1"]
+        a, b = attention_kernel(*args, **kw), attention_plain(*args, **kw)
+        check(fwd_source(args[3], args[0]) == SRC_ATTN_SM90 and bool((a[2] < 2.0 ** -100).any()),
+              f"{what}: B1 on {SRC_ATTN_SM90}, {int((a[2] < 2.0 ** -100).sum())} of "
+              f"{a[2].numel()} tiles below 2^-100")
+        static_kept_rows(torch, a, b, args[0].shape[2])
+
+
+def run_fwd_sm90(torch, st, totals):
+    """Phase 14 (slice 10): B1 on ``csrc/attention_sm90.cu`` and B4-float
+    on ``csrc/flash_sm90.cu``'s biased instantiations.  Returns their JSON
+    entries, which replace the earlier phases' rows of the same keys."""
+    b1 = b1_phase(torch, st, totals)
+    biased = biased_flash_phase(torch, totals)
+    edge_err = fwd_sm90_edges(torch)
+    b1_rerun_phase(torch, st, totals)
+    b1["max_abs_err"] = max(b1["max_abs_err"], edge_err)
+    biased["max_abs_err"] = max(biased["max_abs_err"], edge_err)
+    return [b1, biased]
 
 
 # ---------------------------------------------------------------- configs ----
@@ -4060,11 +4326,12 @@ def kernel_checks(torch, inputs, short, adv_native, launches):
             if timed is None:
                 ms = kernel_ms(lambda: attention_kernel(*full))
                 moved = nbytes(*xs, *kw.values(), *out)
+                source = fwd_source(cfg, xs[0])
                 timed = (ms, plain_ms, attn_bound(cfg, qq, kk, moved), None,
                          f"{tuple(qq.shape)} Hk={kk.shape[1]} causal={causal}; plain on "
                          f"q heads {', '.join(heads)}")
             del out
-        entry(name, SRC_ATTN, TPU_KERNELS["B"], max(errs), *timed)
+        entry(name, source, TPU_KERNELS["B"], max(errs), *timed)
     return entries
 
 

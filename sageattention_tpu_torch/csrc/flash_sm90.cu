@@ -1,16 +1,23 @@
-// B4, the unmasked bf16 flash forward, redesigned for Hopper: TMA loads
-// completing on mbarriers, a ring of K/V stages, wgmma products, the
-// softmax of one tile under the PV product of the one before, and
-// warpgroups taking turns at the tensor cores.
+// B4, the bf16 flash forward, redesigned for Hopper: TMA loads completing
+// on mbarriers, a ring of K/V stages, wgmma products, the softmax of one
+// tile under the PV product of the one before, and warpgroups taking turns
+// at the tensor cores.  Unmasked (B4) at head dims 64, 128 and 256, and
+// with an additive float bias (B4-float, the BIAS instantiations) at 64 and
+// 128.
 //
 // Replaces the Pallas kernel `_attn_kernel` (sageattention_tpu/ops/
 // attention.py:251, launched by `attention_call` with quantized=False) in
-// the configuration with no mask, bias, window, segments, FP4 rounding or
-// ring offsets; those stay on attention.cuh's body (attention_ext.cu,
-// attention_lowbit.cu).  What it computes, as the plain version
-// (ops/attention.py `attention_plain` at `flash_kv_tile(D)` columns):
+// the configurations with no mask, window, segments, FP4 rounding or ring
+// offsets, and no bias or only a float one; those stay on attention.cuh's
+// body (attention_ext.cu, attention_lowbit.cu), as does the bias at D =
+// 256, whose stages do not fit.  What it computes, as the plain version
+// (ops/attention.py `attention_plain` at `flash_kv_tile(D)` columns, 64
+// with a bias):
 //   s = (q . k) * sm_scale * log2(e) in f32; the kv tail past kv_len and,
-//   under causal, col > row (top-left) masked; an online softmax in base 2
+//   under causal, col > row (top-left) masked; with a bias, each score
+//   s * fold rounded, then + bias * log2(e) rounded (the JAX kernel's
+//   attention.py:519-521, after the masks; a masked score stays -inf, and a
+//   bias of -inf gives P = 0); an online softmax in base 2
 //   over BN-column kv tiles with the running max floored at M_CLAMP; P
 //   rounded to bf16 per tile against the tile's running max while l sums
 //   the unrounded f32 P; O += P V with f32 sums; out = O / l in bf16 and
@@ -61,6 +68,20 @@
 //             stages: Q and the stages take 152 / 224 / 192 KB of shared
 //             memory.  At D = 256 the 64 x 256 f32 O accumulator alone is
 //             128 registers a thread.
+//   bias      the f32 bias [B, 1|Hq, Sq, Sk] is the byte stream that sets
+//             the time (1 GiB at MPT-7B's (2, 32, 2048, 128); causal reads
+//             the tiles on and below the diagonal, about half).  Its tile
+//             of BM rows x 64 columns rides in each K stage, on K's
+//             barrier, as two boxes of 32 columns (128-byte rows, 128-byte
+//             swizzled), so its loads run STAGES - 1 tiles ahead of the
+//             products like K's and V's, and each thread reads its scores'
+//             bias as float2 in the accumulator layout without bank
+//             conflicts.  To make room the kv tile is 64 columns with 3
+//             stages at D = 64 and 128 (216 / 224 KB); a batch or head
+//             stride of 0 (a broadcast bias) maps that dimension at size 1,
+//             so nothing is copied.  The fold trick of the unbiased softmax
+//             does not hold with a bias: the maxima are taken over the
+//             biased scores.
 // An exp2 split between the SFUs and the FMA pipes, stores through shared
 // memory, and a persistent grid are later work.
 #include <stdio.h>
@@ -72,18 +93,21 @@ namespace flash90 {
 using namespace sm90;
 
 constexpr float M_CLAMP = -1e20f;   // floor of the running max
+constexpr float LOG2E_F = 1.4426950408889634f;  // natural-log bias -> base 2
 
-template <int D>
+template <int D, bool BIAS = false>
 struct Cfg {
   static constexpr int NWG = D == 64 ? 3 : 2;     // warpgroups, 64 query rows each
   static constexpr int BM = 64 * NWG;             // query rows per block
   static constexpr int THREADS = 128 * NWG;
-  static constexpr int BN = D <= 128 ? 128 : 64;  // kv rows per tile (flash_kv_tile)
-  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;  // K/V ring depth
+  // kv rows per tile (flash_kv_tile; 64 with a bias)
+  static constexpr int BN = BIAS ? 64 : D <= 128 ? 128 : 64;
+  static constexpr int STAGES = BIAS ? 3 : D == 64 ? 4 : D == 128 ? 3 : 2;  // K/V ring depth
   static constexpr int CH = D / 64;               // 128-byte column boxes per row
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;     // one K or V stage
-  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;  // + alignment slack
+  static constexpr int BIAS_BYTES = BIAS ? BM * BN * 4 : 0;  // BN / 32 boxes of BM x 128 bytes
+  static constexpr int SMEM = Q_BYTES + STAGES * (2 * KV_BYTES + BIAS_BYTES) + 1024;  // + slack
 };
 
 struct Params {
@@ -92,6 +116,7 @@ struct Params {
   float* lse;  // [B*Hq*Sq] base 2, or null
   int Hq, Hk, Sq, kv_len, causal;
   float fold;  // sm_scale * log2(e)
+  int bias_b, bias_h;  // 1 where the bias steps over the batch / the heads, else 0
 };
 
 // --------------------------------------------------------------- kernel --
@@ -127,12 +152,32 @@ __device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&pf)
 // exp2(s * fold - m) in f32, and l summing that unrounded P.  With fold > 0
 // the row max of the raw products, times fold, is the max of the scaled
 // scores exactly (rounding is monotone), so the scale rides in one FMA with
-// the max's subtraction; a masked score is -inf, whose P is 0.
-template <int BN>
+// the max's subtraction; a masked score is -inf, whose P is 0.  With a bias
+// (BIAS), the scores become s * fold + bias * log2(e) first, each product
+// and the sum rounded as the plain version rounds them, read from the
+// tile's bias stage `bt` (BM rows of two 32-column boxes, 128-byte
+// swizzled: this thread's float2 of row r, column 8j + 2 q4 lies at
+// `boff` + box (j / 4) + 16 * ((2 (j % 4)) ^ hr), with boff = 128 r + 8 (q4
+// % 2) and hr = (q4 / 2) ^ (r % 8)), and the maxima are those of the
+// biased scores.
+template <int BN, bool BIAS = false, int BM = 0>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const Params& p, int k0,
                                              int row0, int rA, int rB, int q4, float& mA,
                                              float& mB, float& lA, float& lB, float& aA,
-                                             float& aB) {
+                                             float& aB, const uint8_t* bt = nullptr,
+                                             int boff = 0, int hr = 0) {
+  if constexpr (BIAS) {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const uint8_t* at = bt + (j >> 2) * (BM * 128) + boff + (((2 * (j & 3)) ^ hr) << 4);
+      const float2 bA = *reinterpret_cast<const float2*>(at);
+      const float2 bB = *reinterpret_cast<const float2*>(at + 8 * 128);
+      sc[4 * j] = __fadd_rn(__fmul_rn(sc[4 * j], p.fold), __fmul_rn(bA.x, LOG2E_F));
+      sc[4 * j + 1] = __fadd_rn(__fmul_rn(sc[4 * j + 1], p.fold), __fmul_rn(bA.y, LOG2E_F));
+      sc[4 * j + 2] = __fadd_rn(__fmul_rn(sc[4 * j + 2], p.fold), __fmul_rn(bB.x, LOG2E_F));
+      sc[4 * j + 3] = __fadd_rn(__fmul_rn(sc[4 * j + 3], p.fold), __fmul_rn(bB.y, LOG2E_F));
+    }
+  }
   if (k0 + BN > p.kv_len || (p.causal && k0 + BN - 1 > row0)) {
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j)
@@ -152,8 +197,8 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const Params& 
   cA = fmaxf(cA, __shfl_xor_sync(0xffffffffu, cA, 2));
   cB = fmaxf(cB, __shfl_xor_sync(0xffffffffu, cB, 1));
   cB = fmaxf(cB, __shfl_xor_sync(0xffffffffu, cB, 2));
-  const float nA = fmaxf(fmaxf(mA, __fmul_rn(cA, p.fold)), M_CLAMP);
-  const float nB = fmaxf(fmaxf(mB, __fmul_rn(cB, p.fold)), M_CLAMP);
+  const float nA = fmaxf(fmaxf(mA, BIAS ? cA : __fmul_rn(cA, p.fold)), M_CLAMP);
+  const float nB = fmaxf(fmaxf(mB, BIAS ? cB : __fmul_rn(cB, p.fold)), M_CLAMP);
   aA = ex2(__fsub_rn(mA, nA));
   aB = ex2(__fsub_rn(mB, nB));
   mA = nA;
@@ -161,10 +206,17 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const Params& 
   float pA = 0.f, pB = 0.f;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    sc[4 * j] = ex2(__fmaf_rn(sc[4 * j], p.fold, -nA));
-    sc[4 * j + 1] = ex2(__fmaf_rn(sc[4 * j + 1], p.fold, -nA));
-    sc[4 * j + 2] = ex2(__fmaf_rn(sc[4 * j + 2], p.fold, -nB));
-    sc[4 * j + 3] = ex2(__fmaf_rn(sc[4 * j + 3], p.fold, -nB));
+    if constexpr (BIAS) {
+      sc[4 * j] = ex2(__fsub_rn(sc[4 * j], nA));
+      sc[4 * j + 1] = ex2(__fsub_rn(sc[4 * j + 1], nA));
+      sc[4 * j + 2] = ex2(__fsub_rn(sc[4 * j + 2], nB));
+      sc[4 * j + 3] = ex2(__fsub_rn(sc[4 * j + 3], nB));
+    } else {
+      sc[4 * j] = ex2(__fmaf_rn(sc[4 * j], p.fold, -nA));
+      sc[4 * j + 1] = ex2(__fmaf_rn(sc[4 * j + 1], p.fold, -nA));
+      sc[4 * j + 2] = ex2(__fmaf_rn(sc[4 * j + 2], p.fold, -nB));
+      sc[4 * j + 3] = ex2(__fmaf_rn(sc[4 * j + 3], p.fold, -nB));
+    }
     pA += sc[4 * j] + sc[4 * j + 1];
     pB += sc[4 * j + 2] + sc[4 * j + 3];
   }
@@ -194,13 +246,15 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], float aA, float aB) {
   }
 }
 
-// Grid (ceil(Sq / BM), Hq, B), Cfg<D>::THREADS threads.
-template <int D>
-__global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
+// Grid (ceil(Sq / BM), Hq, B), Cfg<D, BIAS>::THREADS threads; tm_b (the
+// bias, BIAS only) is read by no other instantiation.
+template <int D, bool BIAS>
+__global__ void __launch_bounds__(Cfg<D, BIAS>::THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, const Params p) {
-  using C = Cfg<D>;
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_b, const Params p) {
+  using C = Cfg<D, BIAS>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES, NWG = C::NWG;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // q full, then per stage: k full, v full
@@ -209,6 +263,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle wants 1 KB
   const uint32_t sK = sQ + C::Q_BYTES;             // stage s at sK + s * KV_BYTES
   const uint32_t sV = sK + STAGES * C::KV_BYTES;
+  const uint32_t sB = sV + STAGES * C::KV_BYTES;  // BIAS: stage s at sB + s * BIAS_BYTES
+  const uint8_t* const gB = smem_raw + (sB - smem_u32(smem_raw));  // the same, generic
   const uint32_t bar_q = smem_u32(&bars[0]);
   const uint32_t bar_k = smem_u32(&bars[1]);       // stage s at + 8 * s
   const uint32_t bar_v = smem_u32(&bars[1 + STAGES]);
@@ -227,11 +283,17 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
   // barrier
   auto load_tile = [&](int kt) {
     const int s = kt % STAGES;
-    mbar_expect_tx(bar_k + 8 * s, C::KV_BYTES);
+    mbar_expect_tx(bar_k + 8 * s, C::KV_BYTES + C::BIAS_BYTES);
 #pragma unroll
     for (int c = 0; c < CH; ++c)
       tma_load4(sK + s * C::KV_BYTES + c * (BN * 128), &tm_k, bar_k + 8 * s, c * 64, kt * BN, hk,
                 b);
+    if constexpr (BIAS) {  // the bias tile rides on K's barrier
+#pragma unroll
+      for (int c = 0; c < BN / 32; ++c)
+        tma_load4(sB + s * C::BIAS_BYTES + c * (BM * 128), &tm_b, bar_k + 8 * s, kt * BN + c * 32,
+                  q0, hq * p.bias_h, b * p.bias_b);
+    }
     mbar_expect_tx(bar_v + 8 * s, C::KV_BYTES);
 #pragma unroll
     for (int c = 0; c < CH; ++c)
@@ -259,6 +321,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     const int lane = tid % 32, q4 = lane & 3;
     const int row0 = q0 + 64 * cw;
     const int rA = row0 + 16 * ((tid % 128) / 32) + (lane >> 2), rB = rA + 8;  // this thread's rows
+    // BIAS: row rA's offset in a bias box and its swizzle bits (softmax_tile)
+    const int boff = (rA - q0) * 128 + 8 * (q4 & 1), hr = (q4 >> 1) ^ (lane >> 2);
     // the warpgroups take turns, in order, to issue their products, so that
     // one's softmax runs under another's: named barrier 1 + w is warpgroup
     // w's turn, which warpgroup w - 1 hands over after issuing.  Every
@@ -300,7 +364,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
       hand_over();
       wg_wait<0>();
       reg_fence(sc);
-      softmax_tile<BN>(sc, p, 0, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB);
+      softmax_tile<BN, BIAS, BM>(sc, p, 0, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB, gB, boff,
+                                 hr);
       pack_p<BN>(sc, pf);
     }
     // tile kt: S(kt) and O += P(kt-1) V(kt-1) in flight together; the
@@ -322,7 +387,8 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
       hand_over();
       wg_wait<1>();
       reg_fence(sc);
-      softmax_tile<BN>(sc, p, kt * BN, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB);
+      softmax_tile<BN, BIAS, BM>(sc, p, kt * BN, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB,
+                                 gB + s * C::BIAS_BYTES, boff, hr);
       wg_wait<0>();
       reg_fence(o);
       reg_fence_u(pf);
@@ -379,21 +445,40 @@ namespace {
 
 using namespace flash90;
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, const long long* st, const Params& p,
-           int B, cudaStream_t stream) {
-  using C = Cfg<D>;
-  CUtensorMap mq, mk, mv;
+// The bias operand (BIAS): base, element strides (batch, head, row), its
+// head count Hm (1 or Hq) and kv extent Sk.
+struct Bias {
+  const float* ptr;
+  long long sb, sh, ss;
+  int Hm, Sk;
+};
+
+template <int D, bool BIAS>
+int launch(const void* q, const void* k, const void* v, const long long* st, const Bias& bias,
+           Params p, int B, cudaStream_t stream) {
+  using C = Cfg<D, BIAS>;
+  CUtensorMap mq, mk, mv, mb;
   const int kv_rows = p.kv_len > 0 ? p.kv_len : 1;  // n_kt = 0 loads nothing
   if (!make_map(&mq, q, D, p.Sq, p.Hq, B, st[2], st[1], st[0], C::BM) ||
       !make_map(&mk, k, D, kv_rows, p.Hk, B, st[5], st[4], st[3], C::BN) ||
       !make_map(&mv, v, D, kv_rows, p.Hk, B, st[8], st[7], st[6], C::BN))
     return -2;
+  mb = mq;  // read only by the BIAS instantiations
+  p.bias_b = p.bias_h = 0;
+  if constexpr (BIAS) {
+    // a dimension the bias does not step over maps at size 1, at coordinate 0
+    p.bias_b = B > 1 && bias.sb != 0;
+    p.bias_h = bias.Hm > 1 && bias.sh != 0;
+    if (!make_map_t(&mb, bias.ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, bias.Sk, p.Sq,
+                    p.bias_h ? bias.Hm : 1, p.bias_b ? B : 1, bias.ss, bias.sh, bias.sb, 32,
+                    C::BM, CU_TENSOR_MAP_SWIZZLE_128B))
+      return -2;
+  }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_fwd_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.Sq + C::BM - 1) / C::BM, p.Hq, B);
-  flash_fwd_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, p);
+  flash_fwd_kernel<D, BIAS><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mb, p);
   return (int)cudaGetLastError();
 }
 
@@ -416,17 +501,27 @@ const char* sage_flash_error_string(int e) {
 // B4 on bf16 q [B, Hq, Sq, D], k and v [B, Hk, Sk, D] and o [B, Hq, Sq, D],
 // each with its own element strides (batch, head, row; unit column stride,
 // 16-byte aligned base and outer strides).  `bn` must be the kv tile that
-// the plain version walks (ops/attention.py `flash_kv_tile`).
+// the plain version walks (ops/attention.py `flash_kv_tile`, 64 with a
+// bias).  B4-float: `bias` f32 [B, Hm, Sq, Sk] (Hm 1 or Hq) with element
+// strides (batch, head, row), a 16-byte aligned base and 16-byte multiples
+// for every stride stepped over, which may be 0 but the row stride; null
+// for none.
 int sage_flash_fwd(int D, int bn, const void* q, const void* k, const void* v, void* o,
                    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-                   long long v_ss, long long o_sb, long long o_sh, long long o_ss, float* lse,
-                   int B, int Hq, int Hk, int Sq, int Sk, int kv_len, int causal, float fold,
-                   void* stream) {
+                   long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+                   const float* bias, long long b_sb, long long b_sh, long long b_ss, int Hm,
+                   float* lse, int B, int Hq, int Hk, int Sq, int Sk, int kv_len, int causal,
+                   float fold, void* stream) {
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * 2) % 16) return -1;
   if (B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk || !(fold > 0.f)) return -1;
+  const Bias bs = {bias, b_sb, b_sh, b_ss, Hm, Sk};
+  if (bias && (reinterpret_cast<uintptr_t>(bias) % 16 || (Hm != 1 && Hm != Hq) ||
+               b_sb < 0 || b_sh < 0 || (B > 1 && (b_sb * 4) % 16) ||
+               (Hm > 1 && (b_sh * 4) % 16) || (Sq > 1 && ((b_ss * 4) % 16 || b_ss < Sk))))
+    return -1;
   if (Sq == 0) return 0;
   Params p;
   p.o = static_cast<__nv_bfloat16*>(o);
@@ -435,9 +530,14 @@ int sage_flash_fwd(int D, int bn, const void* q, const void* k, const void* v, v
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.kv_len = kv_len; p.causal = causal;
   p.fold = fold;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64 && bn == Cfg<64>::BN) return launch<64>(q, k, v, st, p, B, s);
-  if (D == 128 && bn == Cfg<128>::BN) return launch<128>(q, k, v, st, p, B, s);
-  if (D == 256 && bn == Cfg<256>::BN) return launch<256>(q, k, v, st, p, B, s);
+  if (bias) {
+    if (D == 64 && bn == Cfg<64, true>::BN) return launch<64, true>(q, k, v, st, bs, p, B, s);
+    if (D == 128 && bn == Cfg<128, true>::BN) return launch<128, true>(q, k, v, st, bs, p, B, s);
+    return -1;
+  }
+  if (D == 64 && bn == Cfg<64>::BN) return launch<64, false>(q, k, v, st, bs, p, B, s);
+  if (D == 128 && bn == Cfg<128>::BN) return launch<128, false>(q, k, v, st, bs, p, B, s);
+  if (D == 256 && bn == Cfg<256>::BN) return launch<256, false>(q, k, v, st, bs, p, B, s);
   return -1;
 }
 

@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the sm_90a kernels (flash_sm90.cu,
-// backward_sm90.cu): mbarriers, TMA loads, wgmma with 128-byte-swizzled
-// shared-memory descriptors, and the host's rank-4 tensor maps.  Each
+// backward_sm90.cu, attention_sm90.cu): mbarriers, TMA loads, wgmma in bf16
+// and int8 with 128- and 64-byte-swizzled shared-memory descriptors, and the
+// host's rank-4 tensor maps.  Each
 // source that includes it is its own library, so the host helpers live in
 // an anonymous namespace.
 #pragma once
@@ -99,6 +100,20 @@ __device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
 
 __device__ __forceinline__ uint64_t desc(uint32_t lo) {
   return (static_cast<uint64_t>(DESC_HI) << 32) | lo;
+}
+
+// K-major operands with 64-byte rows (int8 at D = 64), SWIZZLE_64B: the
+// stride byte offset is 8 rows of 64 bytes; a k32 step advances 32 bytes.
+constexpr uint32_t DESC_HI_64 = (512 >> 4) | (2u << 30);
+
+__device__ __forceinline__ uint64_t desc64(uint32_t lo) {
+  return (static_cast<uint64_t>(DESC_HI_64) << 32) | lo;
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma operands written by threads).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // A value the compiler cannot see through: per-step descriptors built from
@@ -224,6 +239,35 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4]
 }
 
 template <int N>
+__device__ __forceinline__ void reg_fence(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// wgmma m64n128k32, s32 += s8 x s8, A and B from shared memory, both
+// K-major (the only layout 8-bit operands take; integer wgmma has no scale
+// or transpose immediates).  scale_d 0 overwrites the accumulator.
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <int N>
 __device__ __forceinline__ void reg_fence_u(uint32_t (&r)[N][4]) {
 #pragma unroll
   for (int i = 0; i < N; ++i)
@@ -263,30 +307,39 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The rank-4 map (D, S, H, B) of a bf16 tensor with element strides (ss,
-// sh, sb) and boxes of 64 columns x `rows` rows, 128-byte swizzled; reads
-// past S zero-fill.  A dimension of size 1 is never stepped over, so it
-// takes a stride the encoder accepts whatever the tensor's (0 when
-// expanded).
-bool make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, long long ss,
-              long long sh, long long sb, int rows) {
+// The rank-4 map (C, S, H, B) of a tensor of `esize`-byte elements of type
+// `dtype` with element strides (ss, sh, sb) and boxes of `box_cols` columns
+// x `rows` rows, swizzled by `swz`; reads past C and S zero-fill.  A
+// dimension of size 1 is never stepped over, so it takes a stride the
+// encoder accepts whatever the tensor's (0 when expanded).
+bool make_map_t(CUtensorMap* map, const void* base, CUtensorMapDataType dtype, int esize, int C,
+                int S, int H, int B, long long ss, long long sh, long long sb, int box_cols,
+                int rows, CUtensorMapSwizzle swz) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) {
     g_encode_result = -1;
     return false;
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
-  const long long st[3] = {S == 1 ? D : ss, H == 1 ? D : sh, B == 1 ? D : sb};
-  const cuuint64_t strides[3] = {(cuuint64_t)st[0] * 2, (cuuint64_t)st[1] * 2,
-                                 (cuuint64_t)st[2] * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const long long row = ((long long)C * esize + 15) / 16 * 16;  // never stepped over
+  const cuuint64_t strides[3] = {(cuuint64_t)(S == 1 ? row : ss * esize),
+                                 (cuuint64_t)(H == 1 ? row : sh * esize),
+                                 (cuuint64_t)(B == 1 ? row : sb * esize)};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, (cuuint32_t)rows, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  const CUresult r = enc(map, dtype, 4, const_cast<void*>(base), dims, strides, box, elem,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   g_encode_result = (int)r;
   return r == CUDA_SUCCESS;
+}
+
+// A bf16 tensor (D, S, H, B) in boxes of 64 columns x `rows` rows,
+// 128-byte swizzled.
+bool make_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, long long ss,
+              long long sh, long long sb, int rows) {
+  return make_map_t(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, D, S, H, B, ss, sh, sb, 64,
+                    rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace

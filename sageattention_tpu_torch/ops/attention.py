@@ -5,12 +5,19 @@ the JAX field names and ``attention_call`` takes the same inputs.  The
 configurations, by their launch key (``config_name``):
 
   B1 / B2        fused int8 Q, native int8 QK^T, int8 V under a bf16 P:
-                 static, and its online fallback (pv_via_bf16)
+                 static, and its online fallback (pv_via_bf16); B1 with a
+                 bf16 Q at head dims 64 and 128 runs
+                 ``csrc/attention_sm90.cu`` (TMA, int8 wgmma, warpgroups
+                 taking turns; :func:`b1_sm90_route`), on V codes widened to
+                 bf16 (:func:`widen_v_codes`)
   B3 / B3-online fused Q with bf16 compute (short sequences), int8 V
   B4             quantized=False: the bf16 flash baseline; with no mask,
                  window, segments or FP4 rounding it runs
                  ``csrc/flash_sm90.cu`` (TMA, wgmma, warpgroups taking
-                 turns), whose kv tiles are ``flash_kv_tile(D)`` wide
+                 turns), whose kv tiles are ``flash_kv_tile(D)`` wide, and
+                 so does ``B4-float`` (a float bias and no other option) at
+                 head dims 64 and 128, on 64-column tiles
+                 (:func:`flash_sm90_route`)
   B4-fp4         the same with ``p_sim_fp4``: each 64-column P tile rounded
                  to e2m1 at (its row max) / 6 under the online softmax, l
                  summing the rounded P (``csrc/attention_lowbit.cu``; the
@@ -42,7 +49,8 @@ computes with ``fp8_native_dot=False``.  Unlike the TPU kernel, the inputs
 need no padding to the block sizes: the CUDA kernel masks the ragged edges
 itself and picks its own tiles, so ``block_q``/``block_k``/
 ``block_k_inner`` are accepted and ignored, and the online softmax walks
-64-column kv tiles (the unmasked B4: ``flash_kv_tile(D)`` columns).
+64-column kv tiles (the unmasked B4 on ``flash_sm90.cu``:
+``flash_kv_tile(D)`` columns).
 ``lmin`` comes back as ``[B, Hq, ceil(Sq/64)]``, one minimum row
 denominator per 64-row query tile.
 
@@ -183,13 +191,30 @@ def _extended(cfg: AttnConfig) -> bool:
             or cfg.fuse_k_rows)
 
 
-def flash_sm90_route(cfg: AttnConfig, rows: int) -> bool:
-    """True for the configurations that ``csrc/flash_sm90.cu`` runs: the
-    bf16 flash baseline (B4, ``quantized=False``) with no FP4 rounding, no
-    ring offsets or device length, and no mask, segments, window or row K
-    scales.  Every other B4 form stays on ``attention.cuh``'s body."""
-    return (not cfg.quantized and not cfg.p_sim_fp4 and not is_ring(cfg, rows)
-            and not _extended(cfg))
+def flash_sm90_route(cfg: AttnConfig, rows: int, D: int) -> bool:
+    """True for the launches that ``csrc/flash_sm90.cu`` runs: the bf16
+    flash baseline (``quantized=False``) with no FP4 rounding and no ring
+    offsets or device length, either with no mask, segments, window or row
+    K scales (B4, head dims 64, 128 and 256) or with a float bias and none
+    of the others (B4-float, head dims 64 and 128: at 256 its stages do not
+    fit).  Every other B4 form stays on ``attention.cuh``'s body."""
+    if cfg.quantized or cfg.p_sim_fp4 or is_ring(cfg, rows):
+        return False
+    if not _extended(cfg):
+        return True
+    return (cfg.masked == "float" and not (cfg.segmented or cfg.window or cfg.fuse_k_rows)
+            and D in (64, 128))
+
+
+def b1_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
+    """True for the launches that ``csrc/attention_sm90.cu`` runs: B1 (the
+    static fused-Q int8 forward with int8 V, no mask, window, segments or
+    ring offsets) on a bf16 Q at head dims 64 and 128.  B1 at D = 256 or
+    with an f32/f16 Q, and every other configuration, stay on
+    ``attention.cuh``'s body.  ``cfg`` must be one :func:`config_name`
+    takes."""
+    return (D in (64, 128) and q_dtype == torch.bfloat16
+            and config_name(cfg, rows) == "B1")
 
 
 def flash_kv_tile(D: int) -> int:
@@ -197,7 +222,7 @@ def flash_kv_tile(D: int) -> int:
     ``D`` (its BN): 128 up to D = 128, 64 at D = 256, where Q and two K and
     V stages must fit the 227 KB of shared memory.  B4's bf16 P is rounded
     per tile against the running max, so the plain version walks the same
-    tiles."""
+    tiles.  With a bias (B4-float) the kernel walks ``KV_TILE``."""
     return 128 if D <= 128 else 64
 
 
@@ -486,7 +511,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     TF32 off), P summed into l as the kernel rounds it (unrounded f32 for a
     bf16 P, the codes for int8/e4m3 P), P times V with f32 sums, and the
     online softmax over the kernel's kv tiles (64 columns, or
-    ``flash_kv_tile(D)`` on ``flash_sm90.cu``'s route).  A kv tile that
+    ``flash_kv_tile(D)`` on ``flash_sm90.cu``'s unmasked route).  A kv tile that
     the kernel skips (dead under a mask or below a window) holds only masked
     scores here, which changes no running sum, so both agree exactly.
     ``q_segments [B,Sq]``, ``kv_segments``/``kv_segpos [B,Sk]``,
@@ -499,7 +524,9 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     Sk = k.shape[2]
     static = cfg.softmax_mode == "static"
     p_mode = "fp4" if cfg.p_sim_fp4 else "bf16" if cfg.p_bf16 else cfg.pv_dtype
-    tile = flash_kv_tile(D) if flash_sm90_route(cfg, Sq) else KV_TILE   # the kernel's kv tile
+    # the kernel's kv tile: 64 but on flash_sm90.cu's unmasked route
+    tile = (flash_kv_tile(D) if flash_sm90_route(cfg, Sq, D) and cfg.masked == "none"
+            else KV_TILE)
     qop, qse, cap = _prepare_q(q, cfg, name, k_head_scale, kn_max, q_scale)
     kf = _per_q_head(k, Hq).float()
     vf = _per_q_head(_v_operand(v, cfg.pv_dtype if cfg.quantized else "bf16"), Hq)
@@ -625,22 +652,30 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                      q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None,
                      offsets=None, kv_true=None):
     """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/flash_sm90.cu``
-    (the unmasked flash, :func:`flash_sm90_route`), ``csrc/attention.cu``
-    (fused Q) or ``attention_q8.cu`` (pre-quantized Q), and their
-    ``*_ext.cu`` builds for the B7-B9 options (masked flash too); same
-    arguments and returns as :func:`attention_plain`.  B10's offsets and
-    true length stay on the device: the kernel reads them."""
+    (the unmasked and the biased flash, :func:`flash_sm90_route`),
+    ``csrc/attention_sm90.cu`` (B1 on a bf16 Q, :func:`b1_sm90_route`),
+    ``csrc/attention.cu`` (fused Q) or ``attention_q8.cu`` (pre-quantized
+    Q), and their ``*_ext.cu`` builds for the B7-B9 options (masked flash
+    too); same arguments and returns as :func:`attention_plain`.  B10's
+    offsets and true length stay on the device: the kernel reads them."""
     B, Hq, Sq, D = q.shape
     name = config_name(cfg, Sq)
     _, Hk, Sk, _ = k.shape
     if D not in (64, 128, 256):
         raise ValueError(f"the attention kernel takes head_dim 64/128/256 (pad first), got {D}")
-    if flash_sm90_route(cfg, Sq):
-        out, lse = _flash_sm90(q, k, v, cfg, v_mean)
+    if flash_sm90_route(cfg, Sq, D):
+        out, lse = _flash_sm90(q, k, v, cfg, v_mean,
+                               attn_mask if cfg.masked == "float" else None)
         attention_call.launches[name] += 1
         if out.dtype != cfg.out_dtype:
             out = out.to(cfg.out_dtype)
         return out, lse, None
+    if b1_sm90_route(cfg, Sq, D, q.dtype):
+        out, lse, lmin = _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean)
+        attention_call.launches[name] += 1
+        if out.dtype != cfg.out_dtype:
+            out = out.to(cfg.out_dtype)
+        return out, lse, lmin
     static = cfg.softmax_mode == "static"
     out_dtype = cfg.out_dtype if cfg.out_dtype in (torch.bfloat16, torch.float32) else torch.float32
     if not cfg.quantized:
@@ -730,34 +765,100 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
 
 
 def _tma_operand(x):
-    """``x`` in bf16 as a tensor map takes it: :func:`_build.vector_aligned`
-    and no zero stride over a dimension longer than 1 (an expanded view)."""
-    x = _build.vector_aligned(x.to(torch.bfloat16))
+    """``x`` (in bf16 unless it is int8 codes) as a tensor map takes it:
+    :func:`_build.vector_aligned` and no zero stride over a dimension longer
+    than 1 (an expanded view)."""
+    x = _build.vector_aligned(x if x.dtype == torch.int8 else x.to(torch.bfloat16))
     if any(st == 0 and n > 1 for st, n in zip(x.stride(), x.shape)):
         return x.contiguous()
     return x
 
 
-def _flash_sm90(q, k, v, cfg, v_mean):
-    """Launch ``csrc/flash_sm90.cu`` (B4 on :func:`flash_sm90_route`):
-    ``(out bf16, lse_base2 | None)``.  Any strides with a unit column
-    stride load as they are (HND, NHD, sliced heads)."""
+def _tma_bias(m):
+    """The float bias ``[B, Hm, Sq, Sk]`` in f32 as a tensor map takes it:
+    itself where its base and its batch, head and row strides (in bytes)
+    are multiples of 16, a zero batch or head stride included (a broadcast
+    bias is never expanded); else a copy whose rows are padded to a
+    multiple of 4 floats, of the batches and heads it holds."""
+    m = m.float()
+    B, Hm, Sq, Sk = m.shape
+    sb, sh, ss = (m.stride(i) for i in range(3))
+    bb, hb = B > 1 and sb == 0, Hm > 1 and sh == 0   # broadcast over batch / heads
+    if (m.stride(3) == 1 and m.data_ptr() % 16 == 0 and (Sq == 1 or (ss % 4 == 0 and ss >= Sk))
+            and (B == 1 or bb or sb % 4 == 0) and (Hm == 1 or hb or sh % 4 == 0)):
+        return m
+    src = m[:1 if bb else B, :1 if hb else Hm]
+    buf = torch.empty(src.shape[:3] + (-(-Sk // 4) * 4,), dtype=torch.float32,
+                      device=m.device)[..., :Sk]
+    buf.copy_(src)
+    return buf.expand(B, Hm, Sq, Sk)
+
+
+def _flash_sm90(q, k, v, cfg, v_mean, bias=None):
+    """Launch ``csrc/flash_sm90.cu`` (B4 and B4-float on
+    :func:`flash_sm90_route`): ``(out bf16, lse_base2 | None)``.  Any
+    strides with a unit column stride load as they are (HND, NHD, sliced
+    heads); ``bias`` is B4-float's ``attn_mask`` (see :func:`_tma_bias`)."""
     if v_mean is not None:
-        raise ValueError("the unmasked flash kernel takes no v_mean")
+        raise ValueError("the flash kernel takes no v_mean")
     if not cfg.sm_scale > 0:
-        raise ValueError(f"the unmasked flash kernel takes sm_scale > 0, got {cfg.sm_scale}")
+        raise ValueError(f"the flash kernel takes sm_scale > 0, got {cfg.sm_scale}")
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
     q, k, v = (_tma_operand(x) for x in (q, k, v))
     out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if cfg.emit_lse else None)
-    _build.call("sage_flash_fwd", q.device, D, flash_kv_tile(D), q.data_ptr(), k.data_ptr(),
+    tile, bias_args = flash_kv_tile(D), (None, 0, 0, 0, 1)
+    if bias is not None:
+        bias = _tma_bias(bias)
+        tile, bias_args = KV_TILE, (bias.data_ptr(), *bias.stride()[:3], bias.shape[1])
+    _build.call("sage_flash_fwd", q.device, D, tile, q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
-                *v.stride()[:3], *out.stride()[:3], None if lse is None else lse.data_ptr(),
+                *v.stride()[:3], *out.stride()[:3], *bias_args,
+                None if lse is None else lse.data_ptr(),
                 B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
                 _F32(cfg.sm_scale * LOG2E))
     return out, lse
+
+
+def widen_v_codes(v):
+    """B1's int8 V codes in bf16 (exact), the B operand of the PV product
+    of ``csrc/attention_sm90.cu``: one elementwise pass per call, its own
+    line in ``tools/port_ab.py``'s breakdown; ``v_scale`` stays in the
+    kernel's epilogue."""
+    return v.to(torch.bfloat16)
+
+
+def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
+    """Launch ``csrc/attention_sm90.cu`` (B1 on :func:`b1_sm90_route`):
+    ``(out bf16, lse_base2 | None, lmin)``.  ``q`` bf16 with any strides
+    of unit column stride, ``k``/``v`` int8 codes, the scales as
+    :func:`attention_call` takes them."""
+    if k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError("B1 takes int8 K and V codes")
+    if not cfg.sm_scale > 0:
+        raise ValueError(f"B1's kernel takes sm_scale > 0, got {cfg.sm_scale}")
+    B, Hq, Sq, D = q.shape
+    _, Hk, Sk, _ = k.shape
+    q, k = _tma_operand(q), _tma_operand(k)
+    vb = _tma_operand(widen_v_codes(v))
+    out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if cfg.emit_lse else None)
+    lmin = torch.empty((B, Hq, -(-Sq // Q_TILE)), dtype=torch.float32, device=q.device)
+    # contiguous f32 copies, each held by a name until the launch
+    ks = k_head_scale.float().reshape(B * Hk).contiguous()
+    knm = _per_q_head(kn_max.float().reshape(B, -1, 1, 1), Hq).reshape(B * Hq).contiguous()
+    vs = v_scale.float().reshape(B * Hk * D).contiguous()
+    vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
+    _build.call("sage_attn_fwd_sm90", q.device, D, q.data_ptr(), k.data_ptr(), vb.data_ptr(),
+                out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *vb.stride()[:3],
+                *out.stride()[:3], ks.data_ptr(), knm.data_ptr(), vs.data_ptr(),
+                None if vm is None else vm.data_ptr(), None if lse is None else lse.data_ptr(),
+                lmin.data_ptr(), B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
+                _F32(cfg.sm_scale * LOG2E))
+    return out, lse, lmin
 
 
 # ------------------------------------------------------------ decode (B11) ----

@@ -145,10 +145,11 @@ def _route_configs():
 
 
 def test_route_takes_exactly_the_unmasked_flash():
-    """``flash_sm90_route`` is a function of the configuration: it takes
-    exactly the configurations whose launch key is plain ``B4`` (no mask,
-    bias, window, segments or FP4), and none of B4-bool/-float/-window/
-    -seg, B4-fp4, the quantized ones or the ring's."""
+    """``flash_sm90_route`` is a function of the configuration, the rows and
+    the head dim: it takes exactly the configurations whose launch key is
+    plain ``B4`` (no mask, bias, window, segments or FP4) at every head dim,
+    and ``B4-float`` (a float bias alone) at head dims 64 and 128; none of
+    B4-bool/-window/-seg, B4-fp4, the quantized ones or the ring's."""
     seen = set()
     for cfg in _route_configs():
         try:
@@ -156,12 +157,14 @@ def test_route_takes_exactly_the_unmasked_flash():
         except ValueError:
             continue
         seen.add(name)
-        assert tatt.flash_sm90_route(cfg, 512) == (name == "B4"), name
+        for D in (64, 128, 256):
+            assert tatt.flash_sm90_route(cfg, 512, D) == (
+                name == "B4" or (name == "B4-float" and D <= 128)), (name, D)
     assert {"B4", "B4-bool", "B4-float", "B4-window", "B4-fp4", "B1", "B5-fp8"} <= seen
     # the ring's dynamic lengths and offsets never take it
     ring = tatt.AttnConfig(quantized=False, causal=True, causal_dynamic=True,
                            kv_len_dynamic=True)
-    assert not tatt.flash_sm90_route(ring, 512)
+    assert not tatt.flash_sm90_route(ring, 512, 128)
     assert [tatt.flash_kv_tile(D) for D in (64, 128, 256)] == [128, 128, 64]
 
 
@@ -169,14 +172,15 @@ def test_route_takes_exactly_the_unmasked_flash():
     (dict(), "sage_flash_fwd"),
     (dict(causal=True), "sage_flash_fwd"),
     (dict(masked="bool"), "sage_attn_fwd_ext"),
-    (dict(masked="float"), "sage_attn_fwd_ext"),
+    (dict(masked="float"), "sage_flash_fwd"),
     (dict(causal=True, window=64, sinks=2), "sage_attn_fwd_ext"),
     (dict(p_sim_fp4=True), "sage_attn_fwd_fp4"),
 ])
 def test_kernel_entry_per_configuration(monkeypatch, cfg_kw, entry):
-    """``attention_kernel`` launches B4 through the new entry and the masked,
-    windowed and FP4 forms through the old builds, under the same launch
-    key family; the launch is recorded instead of run (no card here)."""
+    """``attention_kernel`` launches B4 and, at this head dim, B4-float
+    through the new entry and the bool-masked, windowed and FP4 forms
+    through the old builds, under the same launch key family; the launch is
+    recorded instead of run (no card here)."""
     calls = []
     monkeypatch.setattr(_build, "call", lambda fn, device, *args: calls.append((fn, args)))
     D, S = 128, 192
@@ -194,5 +198,6 @@ def test_kernel_entry_per_configuration(monkeypatch, cfg_kw, entry):
     assert tatt.attention_call.launches[name] == before + 1
     if entry == "sage_flash_fwd":
         args = calls[0][1]
-        assert args[:2] == (D, tatt.flash_kv_tile(D))   # head dim, the plain version's tile
+        # head dim, the plain version's tile (64 with a bias)
+        assert args[:2] == (D, tatt.KV_TILE if mask is not None else tatt.flash_kv_tile(D))
         assert args[-8:-1] == (1, 4, 2, S, S, S, int(cfg.causal))   # B .. causal

@@ -11,17 +11,24 @@ CogVideoX1.5 (1, 48, 17776, 64), Llama-70B GQA causal (1, 64/8, 16384,
 128) and Gemma-7B causal (1, 16, 8192, 256) shapes, it prints one line
 ``AB <tree> <json>`` with:
 
-- the kernel time (ms) of B1, B2, B5-fp8-fusedq, B6-static, B-pvbf16 and
-  B4 on the inputs the port's quantizers give them, B4's masked and
-  FP4 forms (``B4-window`` with a 4,096-token window on the causal shapes,
+- the kernel time (ms) of B2, B5-fp8-fusedq, B6-static, B-pvbf16, B4 and
+  B1 (last: the kernel this version of the tool was written for) on the
+  inputs the port's quantizers give them, B4's masked and FP4 forms
+  (``B4-window`` with a 4,096-token window on the causal shapes,
   ``B4-fp4``), and B4's library call (``F.scaled_dot_product_attention``
   on its flash backend, ``B4 library``) beside them;
 - ``sageattn``'s time per call, back to back as a caller makes them;
 - where one ``sageattn`` call spends its time: the device time of each
-  kernel it launches (CUDA events around each launch), the rest of the
-  call (PyTorch glue kernels, the host read of the static check and the
-  host's dispatch while the card waits), and the host time from the call's
-  start to its first kernel launch;
+  kernel it launches (CUDA events around each launch), of the widening of
+  B1's V codes to bf16 (``widen_v_codes``, in trees that have it), the
+  rest of the call (PyTorch glue kernels, the host read of the static check
+  and the host's dispatch while the card waits), and the host time from the
+  call's start to its first kernel launch;
+
+then, at MPT-7B's ALiBi shape (2, 32, 2048, 128, causal, a 1 GiB f32
+bias), the kernel time of ``B4-float`` and its library call (``mpt
+B4-float library``: ``F.scaled_dot_product_attention`` with the bias and
+the causal mask as one float ``attn_mask``);
 
 the time (ms) of C1 and C2, each alone, in the forms that stay on
 ``backward.cu`` (``-int8`` at CogVideoX1.5 and ``-int8-causal``,
@@ -52,10 +59,10 @@ import time
 
 CASES = {"cog": (1, 48, 48, 17776, 64, False), "llama": (1, 64, 8, 16384, 128, True),
          "gemma": (1, 16, 16, 8192, 256, True)}
-# B4 runs after the configurations that must stay put: what runs before a
-# kernel can move its reading (the parent's B5-fp8-fusedq at Gemma-7B read
-# faster after the old B4 than before it, with the same code)
-KERNELS = ("B1", "B2", "B5-fp8-fusedq", "B6-static", "B-pvbf16", "B4")
+# the changed kernel runs after the configurations that must stay put: what
+# runs before a kernel can move its reading (the parent's B5-fp8-fusedq at
+# Gemma-7B read faster after the old B4 than before it, with the same code)
+KERNELS = ("B2", "B5-fp8-fusedq", "B6-static", "B-pvbf16", "B4", "B1")
 B4_FORMS = {"B4-fp4": dict(p_sim_fp4=True), "B4-window": dict(window=4096)}
 # C1/C2: B, Hq, Hk, S, D, causal; the forms that stay on backward.cu first,
 # the routed bf16 forms last (as B4 above)
@@ -101,11 +108,32 @@ def one_tree(tree: str) -> dict:
             res[f"{shape} sageattn"] = time_fn(call, warmup=2, reps=10) * 1e3
             res[f"{shape} sageattn parts"] = call_parts(torch, _build, call)
             del q, k, v
+        torch.cuda.empty_cache()
+        res.update(biased_rows(torch, cs))
     torch.cuda.empty_cache()
     with torch.no_grad():
         res.update(bwd_rows(torch, cs, st))
     torch.cuda.empty_cache()
     res.update(train_steps(torch, cs))
+    return res
+
+
+def biased_rows(torch, cs):
+    """B4-float's kernel ms at MPT-7B's ALiBi shape, and the library's
+    biased call on the same inputs."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel
+    from sageattention_tpu_torch.utils.testing import time_fn
+    B, H, S, D = 2, 32, 2048, 128
+    q, k, v = cs.realistic_qkv(torch, B, H, H, S, D, 23)
+    slopes = 2.0 ** (-8.0 * torch.arange(1, H + 1, device="cuda") / H)
+    pos = torch.arange(S, device="cuda", dtype=torch.float32)
+    bias = (-slopes[:, None, None] * (pos[:, None] - pos[None, :]).clamp_min(0))[None]
+    bias = bias.expand(B, H, S, S).contiguous()
+    cfg = cs.flash_cfg(torch, D, True, masked="float")
+    res = {"mpt B4-float": time_fn(lambda: attention_kernel(q, k, v, cfg, attn_mask=bias),
+                                   warmup=3, reps=20) * 1e3}
+    res["mpt B4-float library"] = cs.library_masked_ms(torch, (q, k, v, cfg),
+                                                       {"attn_mask": bias})
     return res
 
 
@@ -188,7 +216,9 @@ def train_steps(torch, cs, warm=2, reps=6):
 
 def call_parts(torch, _build, call, reps=10):
     """Median over ``reps`` calls of where one call's time goes (ms)."""
+    from sageattention_tpu_torch.ops import attention as tatt
     real = _build.call
+    real_widen = getattr(tatt, "widen_v_codes", None)
     spans, launches = [], []
 
     def timed(fn, device, *args):
@@ -199,7 +229,17 @@ def call_parts(torch, _build, call, reps=10):
         e.record()
         spans.append((fn, s, e))
 
+    def widen(v):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real_widen(v)
+        e.record()
+        spans.append(("widen_v_codes", s, e))
+        return out
+
     _build.call = timed
+    if real_widen is not None:
+        tatt.widen_v_codes = widen
     rows = []
     try:
         call()
@@ -219,6 +259,8 @@ def call_parts(torch, _build, call, reps=10):
             rows.append(row)
     finally:
         _build.call = real
+        if real_widen is not None:
+            tatt.widen_v_codes = real_widen
     return {key: sorted(r[key] for r in rows)[len(rows) // 2] for key in rows[0]}
 
 
