@@ -9,8 +9,9 @@ Phases (any failure exits non-zero):
 
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from ``sageattention_tpu_torch/csrc``
-   and prints ``ptxas``'s registers and spills of ``flash_sm90.cu`` and
-   ``attention_sm90.cu`` (a spill fails the run);
+   and prints ``ptxas``'s registers and spills of ``flash_sm90.cu``,
+   ``attention_sm90.cu`` and ``attention_q8_sm90.cu`` (a spill fails the
+   run);
 3. main path, with every kernel's launch count set to 0 just before and read
    just after.  At the full widths of CogVideoX1.5 joint attention
    (1, 48, 17776, 64) and a Llama-70B GQA causal prefill (64/8 heads, 16,384
@@ -171,7 +172,23 @@ Phases (any failure exits non-zero):
    bias, a misaligned one, -inf entries and a row with no live key), and
    x60 inputs through ``sageattn`` whose ``lmin`` makes the call rerun
    online (B2).  The skip ratios of phase 7 time dense B1 on
-   ``attention.cuh``'s body, which their masked forms run on.
+   ``attention.cuh``'s body, which their masked forms run on;
+15. B6 on a pre-quantized Q and the ring's B10 forms of it at head dims 64
+   and 128 on their Hopper kernel (``csrc/attention_q8_sm90.cu``; slice
+   11), each path counted on its own: ``sageattn(k_scale_mode="fine")``
+   (per-column K scales) and ``sageattn(fuse_q_quant=False)`` (the scale
+   folded into Q's) at CogVideoX1.5 and Llama-70B GQA causal, the fine
+   call with its static check refused (B6-online) at CogVideoX1.5, each
+   against flash (cosine >= 0.999) and its launch on all heads against the
+   plain version on the first and last q heads; the ring over 4 virtual
+   ranks at CogVideoX1.5 and at Llama-3.1-8B 65,536 causal, static and
+   with x60 inputs (the online fallback), every kind of their B10-B6
+   launches against the plain version; then the edge cases on every head
+   at 64 and 128 (a hidden pair, a diagonal and a partly hidden pair, a
+   padded chunk with fewer than 64 real rows, a chunk of padding only, an
+   unaligned Sk with per-column K scales, GQA, Q groups of 4, 32 and 128
+   rows, static and online each).  Its rows replace phases 4's and 10's of
+   the same keys.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -208,6 +225,7 @@ SRC_PREP = "sageattention_tpu_torch/csrc/prep_kv.cu"
 SRC_QUANT = "sageattention_tpu_torch/csrc/quant.cu"
 SRC_ATTN = "sageattention_tpu_torch/csrc/attention.cuh"
 SRC_ATTN_SM90 = "sageattention_tpu_torch/csrc/attention_sm90.cu"
+SRC_Q8_SM90 = "sageattention_tpu_torch/csrc/attention_q8_sm90.cu"
 COS_BAR = 0.999          # cossim of an int8/bf16-PV mode vs the port's flash
 FP8_BAR = 5e-3           # calc_diff of an fp8-PV mode vs flash (e4m3 P carries ~2.5e-3)
 ORACLE_BAR = 2e-5        # calc_diff of flash vs the f32 oracle (tests/test_attention.py)
@@ -271,8 +289,8 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for source in ("flash_sm90", "attention_sm90"):   # registers; a spill fails the run
-        sm90_ptxas(source)
+    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90"):
+        sm90_ptxas(source)   # registers; a spill fails the run
 
     def timed_phase(what, fn, *args):
         t = time.time()
@@ -295,8 +313,9 @@ def main() -> int:
     # inference mode
     with torch.no_grad():
         kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
-    with torch.inference_mode():   # phase 14's rows replace the earlier ones of their keys
+    with torch.inference_mode():   # phases 14's and 15's rows replace the earlier ones of their keys
         new = timed_phase("phase 14", run_fwd_sm90, torch, st, totals)
+        new += timed_phase("phase 15", run_q8_sm90, torch, st, totals)
     kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
     for e in kernels:   # launches over every counted path
         e["launches"] = totals.get(e["name"], 0)
@@ -1108,6 +1127,8 @@ def fwd_source(cfg, q):
         return SRC_FLASH
     if tatt.b1_sm90_route(cfg, Sq, D, q.dtype):
         return SRC_ATTN_SM90
+    if tatt.q8_sm90_route(cfg, Sq, D, q.dtype):
+        return SRC_Q8_SM90
     return SRC_LOWBIT if cfg.p_sim_fp4 else SRC_ATTN
 
 
@@ -2512,10 +2533,23 @@ class ring_recorder:
 
     def __init__(self, torch, timed=False):
         self.torch, self.timed, self.calls, self.events = torch, timed, {}, []
+        self.widen = []
 
     def __enter__(self):
         from sageattention_tpu_torch.ops import attention as tatt
         self.real = real = tatt.attention_kernel
+        self.real_widen = widen = tatt.widen_v_codes
+
+        def timed_widen(v):
+            s, e = (self.torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = widen(v)
+            e.record()
+            self.widen.append((s, e))
+            return out
+
+        if self.timed:
+            tatt.widen_v_codes = timed_widen
 
         def record(*args, **kw):
             name = tatt.config_name(args[3], args[0].shape[2])
@@ -2536,10 +2570,17 @@ class ring_recorder:
     def __exit__(self, *exc):
         from sageattention_tpu_torch.ops import attention as tatt
         tatt.attention_kernel = self.real
+        tatt.widen_v_codes = self.real_widen
 
     def kernel_ms(self):
         self.torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in self.events)
+
+    def widen_ms(self):
+        """Device ms of the V widening inside the timed launches (part of
+        ``kernel_ms``)."""
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.widen)
 
 
 def virtual_ring(torch, q, k, v, n, return_lse=False, split=None, **kw):
@@ -2671,6 +2712,7 @@ def ring_phase(torch, st, totals, rec):
         split.clear()
         virtual_ring(torch, q, k, v, 4, split=split)
     split["B10 kernels"] = tr.kernel_ms()
+    split["of which V widening"] = tr.widen_ms()
     print("     ring time split, CogVideoX1.5 on 4 virtual ranks (int8 PV, static), ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
           + " (steps = B10 kernels + V-mean add + merge)", flush=True)
@@ -2694,6 +2736,7 @@ def ring_phase(torch, st, totals, rec):
     with ring_recorder(torch, timed=True) as tr:
         virtual_ring(torch, q, k, v, 4, is_causal=True, split=split)
     split["B10 kernels"] = tr.kernel_ms()
+    split["of which V widening"] = tr.widen_ms()
     print(f"     ring time split, {name}, ms: "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()), flush=True)
     del q, k, v, flash, out
@@ -3960,6 +4003,183 @@ def run_fwd_sm90(torch, st, totals):
     return [b1, biased]
 
 
+# ------------------------------ slice 11: B6 and B10-B6 on Hopper ----
+
+# B6's shapes on the main paths: B, Hq, Hk, S, D, causal
+B6_SHAPES = {"CogVideoX1.5": COG_SHAPE + (False,),
+             "Llama-70B GQA": (1, 64, 8, 16384, 128, True)}
+
+
+def b6_phase(torch, st, totals):
+    """B6 through ``sageattn`` at each of ``B6_SHAPES``, static with
+    per-column K scales (``k_scale_mode="fine"``) and with the scale folded
+    into Q's (``fuse_q_quant=False``), and at CogVideoX1.5 the fine call
+    with its predictive check refused (B6-online): each call counted on its
+    own (one launch, on attention_q8_sm90.cu) and held to flash, then its
+    launch on all heads against the plain version on the sampled heads, with
+    its time and bound.  Returns the JSON entries of B6-static and B6-online
+    (CogVideoX1.5's fine calls)."""
+    from sageattention_tpu_torch import core
+    entries = {}
+    for i, (label, (B, H, Hk, S, D, causal)) in enumerate(B6_SHAPES.items()):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 140 + i)
+        flash = st.flash_attention(q, k, v, is_causal=causal)
+        calls = [("fine", "B6-static", dict(k_scale_mode="fine")),
+                 ("folded", "B6-static", dict(fuse_q_quant=False))]
+        if label == "CogVideoX1.5":
+            calls.append(("fine, static check refused", "B6-online", dict(k_scale_mode="fine")))
+        for how, key, kw in calls:
+            what = f"{label} ({B},{H}/{Hk},{S},{D}) causal={causal} sageattn {how}"
+            real = core._static_safe
+            if key == "B6-online":
+                core._static_safe = lambda **_: False
+            try:
+                out, rec = counted_path(torch, what, (key,), {}, totals,
+                                        lambda: st.sageattn(q, k, v, is_causal=causal, **kw))
+            finally:
+                core._static_safe = real
+            exact_counts(what, read_counts(), {key: 1})
+            check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+                  f"{what}: finite output {tuple(out.shape)}")
+            check_vs(f"{what} vs flash", out, flash, "int8")
+            args, akw = rec[key]
+            check(fwd_source(args[3], args[0]) == SRC_Q8_SM90, f"{what}: {key} ran on {SRC_Q8_SM90}")
+            e = attn_kernel_entry(torch, key, args, akw, 0, label=f"{key} ({what})")
+            if label == "CogVideoX1.5" and how != "folded":
+                entries[key] = dict(e, name=key)
+            del out, rec, args, akw
+        del q, k, v, flash
+        torch.cuda.empty_cache()
+    return [entries["B6-static"], entries["B6-online"]]
+
+
+def b10_b6_phase(torch, st, totals):
+    """The ring over 4 virtual ranks at CogVideoX1.5 (padded chunks:
+    B10-B6-static-kvtrue) and at Llama-3.1-8B 65,536 causal (device
+    offsets: B10-B6-static-offsets), each also on x60 inputs whose static
+    check every rank refuses (B10-B6-online-kvtrue, -online-offsets), each
+    counted on its own and held to flash; then every kind of their B10-B6
+    launches against the plain version on sampled heads.  Returns one JSON
+    entry per key, from its launch with the most work."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    rec = ring_recorder(torch)
+    runs = [("CogVideoX1.5", COG_SHAPE, False, "kvtrue"), ("Llama-3.1-8B", LLAMA_LONG, True, "offsets")]
+    for i, (label, (B, H, Hk, S, D), causal, suffix) in enumerate(runs):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 152 + i)
+        for adv in (False, True):
+            x = ([(torch.randn(B, h, S, D, generator=g, device="cuda") * 60).to(torch.bfloat16)
+                  for h in (H, Hk, Hk)] if adv else realistic_qkv(torch, B, H, Hk, S, D,
+                                                                  SEED + 150 + i))
+            key = f"B10-B6-{'online' if adv else 'static'}-{suffix}"
+            what = (f"15 ring {label} ({B},{H}/{Hk},{S},{D}) causal={causal}"
+                    f"{' x60 inputs' if adv else ''} on 4 ranks")
+            with rec:
+                (out, safe), _ = counted_path(torch, what, [key], {}, totals,
+                                              lambda: virtual_ring(torch, *x, 4, is_causal=causal))
+            check(bool(torch.isfinite(out).all()) and out.shape == x[0].shape,
+                  f"{what}: finite output {tuple(out.shape)}")
+            check(not any(safe) if adv else all(safe),
+                  f"{what}: every rank {'refused' if adv else 'took'} the static softmax")
+            flash = st.flash_attention(*x, is_causal=causal)
+            if adv:
+                d = calc_diff(out, flash)
+                check(d < RING_ADV_BAR, f"{what}: vs flash calc_diff {d:.3e} < {RING_ADV_BAR}")
+            else:
+                check_vs(f"{what} vs flash", out, flash, "int8")
+            del x, out, flash
+            torch.cuda.empty_cache()
+    calls = {n: c for n, c in rec.calls.items() if n.startswith("B10-B6-")}
+    for name, kinds in calls.items():
+        args = kinds[0][0]
+        check(fwd_source(args[3], args[0]) == SRC_Q8_SM90, f"{name} ran on {SRC_Q8_SM90}")
+    entries = b10_checks(torch, calls, totals)
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+    return entries
+
+
+def q8_sm90_edges(torch):
+    """B6 and B10-B6 on their Hopper kernel at head dims 64 and 128, static
+    and online, each against its plain version on every head: a hidden
+    chunk pair (no kv tile), a diagonal and a partly hidden pair, a padded
+    chunk with fewer than 64 real rows and a one-row tail block, a chunk of
+    padding only, an unaligned Sk with per-column K scales, GQA 8/2 with
+    kv_len < Sk, a batch of two with NHD-strided codes, Q groups of 4, 32
+    and 128 rows.  Rows
+    that see no key must equal the plain version's (v_mean, or 0) exactly.
+    Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops.attention import (attention_kernel, attention_plain,
+                                                       config_name)
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    nhd_view = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    errs = []
+    for D in (64, 128):
+        BM = 64 * (3 if D == 64 else 2)
+        # (label, B, Hq, Hk, Sq, Sk, causal, kv_len, offsets, kv_true, fold, q_group)
+        cases = [("hidden pair (no kv tile)", 1, 4, 2, 640, 640, True, 0, (0, 640), None, True, 4),
+                 ("diagonal pair", 1, 4, 2, 1024, 1024, True, 0, (1024, 1024), None, True, 128),
+                 ("partly hidden pair (shift -300)", 1, 4, 2, 1000, 1000, True, 0, (0, 300), None,
+                  True, 32),
+                 (f"padded chunk, 40 real rows, one-row tail (Sq {BM + 1})", 1, 4, 2, BM + 1, 640,
+                  False, 0, None, 40, True, 4),
+                 ("a chunk of padding only (no real row)", 1, 4, 2, 640, 640, False, 0, None, 0,
+                  True, 32),
+                 ("unaligned Sk (Sq 700, Sk 1001), per-column K scales", 1, 4, 2, 700, 1001, False,
+                  0, None, None, False, 4),
+                 ("GQA 8/2, causal, kv_len 900 of 1000", 1, 8, 2, 1000, 1000, True, 900, None, None,
+                  False, 32),
+                 ("B = 2, NHD codes, offsets and true length", 2, 4, 4, 640, 640, True, 0,
+                  (640, 0), 500, True, 128)]
+        for label, B, Hq, Hk, Sq, Sk, causal, kv_len, offs, kv_true, fold, q_group in cases:
+            q, k, v = _edge_qkv(torch, g, B, Hq, Hk, Sq, Sk, D)
+            shift = offs[0] - offs[1] if offs else 0
+            kv_eff = min(kv_len or Sk, Sk if kv_true is None else kv_true)
+            rows = torch.arange(Sq, device="cuda")
+            live = (torch.clamp(rows + shift + 1, max=kv_eff) > 0) if causal else (
+                torch.full((Sq,), kv_eff > 0, device="cuda"))
+            for name in ("B6-static", "B6-online"):
+                ring = offs is not None or kv_true is not None
+                cfg = dataclasses.replace(
+                    attn_cfg(torch, name, D, causal), fold_k_scale=fold, kv_len=kv_len,
+                    causal_dynamic=offs is not None, kv_len_dynamic=kv_true is not None,
+                    fuse_v_mean=not ring)
+                xs, kw = kernel_args(torch, cfg, q, k, v, q_group)
+                if ring:
+                    kw.pop("v_mean")   # the ring adds each chunk's V mean after the merge
+                if offs is not None:
+                    kw["offsets"] = torch.tensor(offs, dtype=torch.int32, device="cuda")
+                if kv_true is not None:
+                    kw["kv_true"] = torch.tensor([kv_true], dtype=torch.int32, device="cuda")
+                if B == 2:
+                    xs = (nhd_view(xs[0]), nhd_view(xs[1]), xs[2])
+                what = f"{config_name(cfg, Sq)} edge {label}, D={D}"
+                a = attention_kernel(*xs, cfg, **kw)
+                b = attention_plain(*xs, cfg, **kw)
+                d = calc_diff(a[0][:, :, live], b[0][:, :, live]) if bool(live.any()) else 0.0
+                e = float((a[0].float() - b[0].float()).abs().max())
+                dl = float((a[1] - b[1]).abs().max())
+                errs.append(e)
+                check(d < KERNEL_BAR and dl < LSE_BAR
+                      and bool(torch.equal(a[0][:, :, ~live], b[0][:, :, ~live]))
+                      and fwd_source(cfg, xs[0]) == SRC_Q8_SM90,
+                      f"{what} vs plain on every head ({int(live.sum())} of {Sq} rows see a key): "
+                      f"calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {e:.3e}, lse {dl:.2e} < "
+                      f"{LSE_BAR}, rows with no key equal, on {SRC_Q8_SM90}")
+    return max(errs)
+
+
+def run_q8_sm90(torch, st, totals):
+    """Phase 15 (slice 11): B6 and the ring's B10-B6 forms on
+    ``csrc/attention_q8_sm90.cu``.  Returns their JSON entries, which
+    replace phases 4's and 10's rows of the same keys."""
+    entries = b6_phase(torch, st, totals) + b10_b6_phase(torch, st, totals)
+    edge_err = q8_sm90_edges(torch)
+    for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], edge_err)
+    return entries
+
+
 # ---------------------------------------------------------------- configs ----
 
 def attn_cfg(torch, name, D, causal):
@@ -3994,9 +4214,10 @@ def fused_args(torch, q, k, v, static):
         v_scale=vs, v_mean=vp[1])
 
 
-def kernel_args(torch, cfg, q, k, v):
+def kernel_args(torch, cfg, q, k, v, q_group=4):
     """Kernel inputs for any quantized configuration, built by the port's
-    quantizers as ``_sage_attention`` builds them (A1/A2 for B1-B3)."""
+    quantizers as ``_sage_attention`` builds them (A1/A2 for B1-B3); a
+    pre-quantized Q in groups of ``q_group`` rows."""
     from sageattention_tpu_torch.core import fp8_v
     from sageattention_tpu_torch.ops import quant as tquant
     from sageattention_tpu_torch.ops import quant_kernels as qk
@@ -4019,8 +4240,8 @@ def kernel_args(torch, cfg, q, k, v):
         k8 = k8[:, :, :S]
     qin = q
     if not cfg.fuse_q_quant:
-        q8, qsg = qk.quant_int8_groupwise(q, 4, fold=cfg.sm_scale * tquant.LOG2E)
-        qs = tquant.expand_scales_rows(qsg, 4, q8.shape[2])[:, :, :q.shape[2]]
+        q8, qsg = qk.quant_int8_groupwise(q, q_group, fold=cfg.sm_scale * tquant.LOG2E)
+        qs = tquant.expand_scales_rows(qsg, q_group, q8.shape[2])[:, :, :q.shape[2]]
         if cfg.fold_k_scale:
             qs = qs * _per_q_head(ks, Hq)
         qin, kw["q_scale"] = q8[:, :, :q.shape[2]], qs

@@ -27,8 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "attention_ring", "attention_lowbit", "flash_sm90", "attention_sm90", "decode",
-           "backward", "backward_sm90")
+           "attention_ring", "attention_lowbit", "flash_sm90", "attention_sm90",
+           "attention_q8_sm90", "decode", "backward", "backward_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -52,6 +52,12 @@ _FLASH_ARGS = ([_I] * 2 + [_P] * 4 + [_LL] * 12 + [_P] + [_LL] * 3 + [_I] + [_P]
 # D, (q, k, v, o), 12 strides, (k_head_scale, kn_max, v_scale, v_mean, lse,
 # lmin), (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
 _ATTN_SM90_ARGS = [_I] + [_P] * 4 + [_LL] * 12 + [_P] * 6 + [_I] * 7 + [_F, _P]
+
+# (D, online), (q, k, v, o), 12 strides, q_scale, (k_scale, 2 strides,
+# columns), (kn_max, v_scale, v_mean, lse, offsets, kv_true), (B, Hq, Hk,
+# Sq, Sk, kv_len, causal), stream
+_ATTN_Q8_SM90_ARGS = ([_I] * 2 + [_P] * 4 + [_LL] * 12 + [_P] * 2 + [_LL] * 2 + [_I] + [_P] * 6
+                      + [_I] * 7 + [_P])
 
 # (paged, vkind, D), (q, k, v, ks), 8 strides, (lens, offsets, table, lpage,
 # win_lo), 16 shape/mode ints, fold, (v_scale, v_mean), vs_sb, vs_mul, (pm,
@@ -87,6 +93,7 @@ SIGNATURES = {
     "sage_attn_fwd_fp4": ("attention_lowbit", _ATTN_ARGS),
     "sage_flash_fwd": ("flash_sm90", _FLASH_ARGS),
     "sage_attn_fwd_sm90": ("attention_sm90", _ATTN_SM90_ARGS),
+    "sage_attn_fwd_q8_sm90": ("attention_q8_sm90", _ATTN_Q8_SM90_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
     "sage_bwd_sm90": ("backward_sm90", _BWD_SM90_ARGS),
@@ -101,6 +108,7 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_lowbit": "sage_attn_lowbit_error_string",
                  "flash_sm90": "sage_flash_error_string",
                  "attention_sm90": "sage_attn_sm90_error_string",
+                 "attention_q8_sm90": "sage_attn_q8_sm90_error_string",
                  "decode": "sage_decode_error_string",
                  "backward": "sage_bwd_error_string",
                  "backward_sm90": "sage_bwd_sm90_error_string"}

@@ -26,7 +26,11 @@ configurations, by their launch key (``config_name``):
   B5-fp8(-fusedq) e4m3 P under the online softmax, e4m3 V; a pre-quantized
                  Q (``q_scale``), or a fused one
   B6-static / B6-online  a pre-quantized Q with per-row scales, per-head
-                 (folded) or per-column (``k_scale``) K scales, int8 V
+                 (folded) or per-column (``k_scale``) K scales, int8 V; with
+                 a bf16 output at head dims 64 and 128 it runs
+                 ``csrc/attention_q8_sm90.cu`` (TMA-loaded Q codes, int8
+                 wgmma, the online softmax on 64-column tiles;
+                 :func:`q8_sm90_route`), as do the ring's B10 forms of it
   B6-bf16c       a pre-quantized Q dequantized to bf16 (bf16 compute),
                  static or online
   B-pvbf16(-online)  bf16 V (pv_dtype "bf16"), any Q source and compute
@@ -217,6 +221,20 @@ def b1_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> b
             and config_name(cfg, rows) == "B1")
 
 
+def q8_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
+    """True for the launches that ``csrc/attention_q8_sm90.cu`` runs: B6
+    (int8 Q codes with per-row scales, folded or per-column K scales, int8 V
+    under a bf16 P), static or online, and the ring's B10 forms of it
+    (``-offsets`` and/or ``-kvtrue``), with a bf16 output at head dims 64
+    and 128.  D = 256, an f32 output, ``B6-bf16c`` and every other
+    configuration stay on ``attention.cuh``'s body.  ``cfg`` must be one
+    :func:`config_name` takes."""
+    if D not in (64, 128) or q_dtype != torch.int8 or cfg.out_dtype != torch.bfloat16:
+        return False
+    base = config_name(cfg, rows).removeprefix("B10-")
+    return base.replace("-offsets", "").replace("-kvtrue", "") in ("B6-static", "B6-online")
+
+
 def flash_kv_tile(D: int) -> int:
     """kv columns per online-softmax tile of ``flash_sm90.cu`` at head dim
     ``D`` (its BN): 128 up to D = 128, 64 at D = 256, where Q and two K and
@@ -335,11 +353,11 @@ def config_name(cfg: AttnConfig, rows: int) -> str:
     return name
 
 
-def _launch_keys() -> tuple:
-    """Every key :func:`config_name` gives: each valid combination of the
-    fields that name a configuration, over one query tile (prefill-sized)
-    and, for the decode configuration, over ``DECODE_ROWS`` rows."""
-    keys = {}
+def _launch_configs():
+    """``(cfg, rows)`` over the combinations of the fields that name a
+    configuration, valid or not: over one query tile (prefill-sized), with
+    the ring's dynamic fields on a pre-quantized Q, and, for the decode
+    configuration, over ``DECODE_ROWS`` rows."""
     for quantized, pv, cd, sm, fqq, fold, via, krows, masked, seg, window in itertools.product(
             (True, False), ("int8", "fp8", "bf16"), ("native", "bf16"), ("static", "online"),
             (True, False), (True, False), (False, True), (False, True),
@@ -348,22 +366,29 @@ def _launch_keys() -> tuple:
                          softmax_mode=sm, fuse_q_quant=fqq, fold_k_scale=fold,
                          pv_via_bf16=via, fuse_k_rows=krows, masked=masked, segmented=seg,
                          window=window)
-        try:
-            keys.setdefault(config_name(cfg, Q_TILE))
-        except ValueError:
-            continue
+        yield cfg, Q_TILE
         if _extended(cfg) or not quantized or fqq:
             continue
         for dyn_causal, dyn_len in ((True, False), (False, True), (True, True)):
-            keys.setdefault(config_name(dataclasses.replace(
-                cfg, causal_dynamic=dyn_causal, kv_len_dynamic=dyn_len), Q_TILE))
-    keys.setdefault(config_name(AttnConfig(quantized=False, p_sim_fp4=True), Q_TILE))
+            yield dataclasses.replace(cfg, causal_dynamic=dyn_causal,
+                                      kv_len_dynamic=dyn_len), Q_TILE
+    yield AttnConfig(quantized=False, p_sim_fp4=True), Q_TILE
     for pv, causal, mod in itertools.product(("int8", "fp8", "bf16"), (False, True), (0, 2)):
         if mod and not causal:
             continue
-        keys.setdefault(config_name(AttnConfig(
-            quantized=True, pv_dtype=pv, fuse_q_quant=True, kv_len_dynamic=True,
-            causal=causal, causal_dynamic=causal, causal_row_mod=mod), DECODE_ROWS))
+        yield AttnConfig(quantized=True, pv_dtype=pv, fuse_q_quant=True, kv_len_dynamic=True,
+                         causal=causal, causal_dynamic=causal, causal_row_mod=mod), DECODE_ROWS
+
+
+def _launch_keys() -> tuple:
+    """Every key :func:`config_name` gives: the key of each valid
+    combination :func:`_launch_configs` walks, in its order."""
+    keys = {}
+    for cfg, rows in _launch_configs():
+        try:
+            keys.setdefault(config_name(cfg, rows))
+        except ValueError:
+            pass
     return tuple(keys)
 
 
@@ -654,6 +679,7 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/flash_sm90.cu``
     (the unmasked and the biased flash, :func:`flash_sm90_route`),
     ``csrc/attention_sm90.cu`` (B1 on a bf16 Q, :func:`b1_sm90_route`),
+    ``csrc/attention_q8_sm90.cu`` (B6 and its B10 forms, :func:`q8_sm90_route`),
     ``csrc/attention.cu`` (fused Q) or ``attention_q8.cu`` (pre-quantized
     Q), and their ``*_ext.cu`` builds for the B7-B9 options (masked flash
     too); same arguments and returns as :func:`attention_plain`.  B10's
@@ -676,6 +702,11 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
         if out.dtype != cfg.out_dtype:
             out = out.to(cfg.out_dtype)
         return out, lse, lmin
+    if q8_sm90_route(cfg, Sq, D, q.dtype):
+        out, lse = _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale,
+                            offsets, kv_true)
+        attention_call.launches[name] += 1
+        return out, lse, None
     static = cfg.softmax_mode == "static"
     out_dtype = cfg.out_dtype if cfg.out_dtype in (torch.bfloat16, torch.float32) else torch.float32
     if not cfg.quantized:
@@ -823,10 +854,11 @@ def _flash_sm90(q, k, v, cfg, v_mean, bias=None):
 
 
 def widen_v_codes(v):
-    """B1's int8 V codes in bf16 (exact), the B operand of the PV product
-    of ``csrc/attention_sm90.cu``: one elementwise pass per call, its own
-    line in ``tools/port_ab.py``'s breakdown; ``v_scale`` stays in the
-    kernel's epilogue."""
+    """B1's and B6's int8 V codes in bf16 (exact), the B operand of the PV
+    product of ``csrc/attention_sm90.cu`` and ``attention_q8_sm90.cu``: one
+    elementwise pass per call (per ring step for B10), its own line in
+    ``tools/port_ab.py``'s breakdown; ``v_scale`` stays in the kernel's
+    epilogue."""
     return v.to(torch.bfloat16)
 
 
@@ -859,6 +891,58 @@ def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
                 lmin.data_ptr(), B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
                 _F32(cfg.sm_scale * LOG2E))
     return out, lse, lmin
+
+
+def _tma_cols(x):
+    """Per-column K scales ``[B, Hk, Sk]`` in f32 as a tensor map takes
+    them: itself where its base and its batch and head strides are nonzero
+    16-byte multiples with a unit column stride; else a copy whose rows are
+    padded to a multiple of 4 floats (the map's zero fill covers the
+    tail)."""
+    B, Hk, Sk = x.shape
+    aligned = lambda n, st: n == 1 or (st > 0 and st % 4 == 0)  # noqa: E731
+    if (x.stride(2) == 1 and x.data_ptr() % 16 == 0 and aligned(Hk, x.stride(1))
+            and aligned(B, x.stride(0))):
+        return x
+    buf = torch.zeros((B, Hk, -(-Sk // 4) * 4), dtype=torch.float32, device=x.device)
+    buf[..., :Sk] = x
+    return buf[..., :Sk]
+
+
+def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, kv_true):
+    """Launch ``csrc/attention_q8_sm90.cu`` (B6 and its B10 forms on
+    :func:`q8_sm90_route`): ``(out bf16, lse_base2 | None)``.  ``q`` int8
+    codes and ``k``/``v`` int8 codes with any strides of unit column stride,
+    the scales as :func:`attention_call` takes them; B10's ``offsets`` and
+    ``kv_true`` stay on the device."""
+    if q.dtype != torch.int8 or k.dtype != torch.int8 or v.dtype != torch.int8:
+        raise TypeError("B6 takes int8 Q, K and V codes")
+    B, Hq, Sq, D = q.shape
+    _, Hk, Sk, _ = k.shape
+    static = cfg.softmax_mode == "static"
+    q, k = _tma_operand(q), _tma_operand(k)
+    vb = _tma_operand(widen_v_codes(v))
+    out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if cfg.emit_lse else None)
+    # contiguous f32 copies, each held by a name until the launch
+    qs = q_scale.float().reshape(B, Hq, Sq).contiguous()
+    ks = None if k_scale is None else _tma_cols(k_scale.float().reshape(B, Hk, Sk))
+    knm = (_per_q_head(kn_max.float().reshape(B, -1, 1, 1), Hq).reshape(B * Hq).contiguous()
+           if static else None)
+    vs = v_scale.float().reshape(B * Hk * D).contiguous()
+    vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
+    offs = (offsets.reshape(-1)[:2].to(torch.int32).contiguous()
+            if cfg.causal and cfg.causal_dynamic else None)
+    kvt = kv_true.reshape(-1)[:1].to(torch.int32).contiguous() if cfg.kv_len_dynamic else None
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    ks_st = (0, 0) if ks is None else ks.stride()[:2]
+    _build.call("sage_attn_fwd_q8_sm90", q.device, D, int(not static), q.data_ptr(),
+                k.data_ptr(), vb.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *vb.stride()[:3], *out.stride()[:3], qs.data_ptr(), ptr(ks), *ks_st, Sk,
+                ptr(knm), vs.data_ptr(), ptr(vm), ptr(lse), ptr(offs), ptr(kvt),
+                B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal))
+    return out, lse
 
 
 # ------------------------------------------------------------ decode (B11) ----

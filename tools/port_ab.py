@@ -11,8 +11,7 @@ CogVideoX1.5 (1, 48, 17776, 64), Llama-70B GQA causal (1, 64/8, 16384,
 128) and Gemma-7B causal (1, 16, 8192, 256) shapes, it prints one line
 ``AB <tree> <json>`` with:
 
-- the kernel time (ms) of B2, B5-fp8-fusedq, B6-static, B-pvbf16, B4 and
-  B1 (last: the kernel this version of the tool was written for) on the
+- the kernel time (ms) of B2, B5-fp8-fusedq, B-pvbf16, B4 and B1 on the
   inputs the port's quantizers give them, B4's masked and FP4 forms
   (``B4-window`` with a 4,096-token window on the causal shapes,
   ``B4-fp4``), and B4's library call (``F.scaled_dot_product_attention``
@@ -40,17 +39,29 @@ same inputs, with the library's backward (one ``torch.autograd.grad``
 through ``F.scaled_dot_product_attention``, ``C1+C2 library``) at both
 shapes;
 
-and, for the training steps of ``chip_smoke.py``'s phase 9 with the port's
+for the training steps of ``chip_smoke.py``'s phase 9 with the port's
 exact attention (``flash_dot_product_attention``: the B4 forward and the
 bf16 C1/C2 backward), the ms per Adam step at Llama-3-8B width (2 blocks,
 8,192 tokens, causal) and at CogVideoX1.5 width (the 2-block DiT's
-diffusion step), each the median of 6 steps after 2 warm ones.
+diffusion step), each the median of 6 steps after 2 warm ones;
+
+and last, the kernels this version of the tool was written for: B6-static
+and B6-online (a pre-quantized Q, per-column K scales) at the three shapes;
+the ring's four B10-B6 forms, ``-static-offsets`` and ``-online-offsets`` on
+a visible Llama-3.1-8B chunk pair (32/8 heads, 16,384 x 16,384, hd 128) and
+``-static-kvtrue`` and ``-online-kvtrue`` on a CogVideoX1.5 chunk pair (48
+heads, 5,120 x 5,120, hd 64); and the ring over 4 virtual ranks
+(``chip_smoke.virtual_ring``) at CogVideoX1.5 and at Llama-3.1-8B 65,536
+causal: ms per call, and where one call spends it (``ring parts``: the
+device time of its attention launches, of which the widening of the V codes
+to bf16, and the rest: prep, the safety read, the merges).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -62,7 +73,13 @@ CASES = {"cog": (1, 48, 48, 17776, 64, False), "llama": (1, 64, 8, 16384, 128, T
 # the changed kernel runs after the configurations that must stay put: what
 # runs before a kernel can move its reading (the parent's B5-fp8-fusedq at
 # Gemma-7B read faster after the old B4 than before it, with the same code)
-KERNELS = ("B2", "B5-fp8-fusedq", "B6-static", "B-pvbf16", "B4", "B1")
+KERNELS = ("B2", "B5-fp8-fusedq", "B-pvbf16", "B4", "B1")
+Q8_KERNELS = ("B6-static", "B6-online")
+# the ring's B10-B6 forms: (B, Hq, Hk, S, D), softmax, device scalar
+B10_PAIRS = {"B10-B6-static-offsets": ((1, 32, 8, 16384, 128), "static", "offsets"),
+             "B10-B6-online-offsets": ((1, 32, 8, 16384, 128), "online", "offsets"),
+             "B10-B6-static-kvtrue": ((1, 48, 48, 5120, 64), "static", "kvtrue"),
+             "B10-B6-online-kvtrue": ((1, 48, 48, 5120, 64), "online", "kvtrue")}
 B4_FORMS = {"B4-fp4": dict(p_sim_fp4=True), "B4-window": dict(window=4096)}
 # C1/C2: B, Hq, Hk, S, D, causal; the forms that stay on backward.cu first,
 # the routed bf16 forms last (as B4 above)
@@ -115,6 +132,97 @@ def one_tree(tree: str) -> dict:
         res.update(bwd_rows(torch, cs, st))
     torch.cuda.empty_cache()
     res.update(train_steps(torch, cs))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res.update(q8_rows(torch, cs))
+        res.update(ring_rows(torch, cs))
+    return res
+
+
+def q8_rows(torch, cs):
+    """B6's kernel ms at each of ``CASES`` on the inputs the port's
+    quantizers give it, and the B10-B6 forms' on ``B10_PAIRS``: the
+    ring's operands (Q codes per 4 rows with the per-head K scale folded
+    in, no V mean), a visible pair's offsets or a full chunk's true length
+    on the device."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for shape, (B, Hq, Hk, S, D, causal) in CASES.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+        for name in Q8_KERNELS:
+            cfg = cs.attn_cfg(torch, name, D, causal)
+            xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+            res[f"{shape} {name}"] = time_fn(lambda: attention_kernel(*xs, cfg, **kw),
+                                             warmup=3, reps=20) * 1e3
+        del q, k, v
+    for name, ((B, Hq, Hk, S, D), mode, dyn) in B10_PAIRS.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 3)
+        causal = dyn == "offsets"
+        cfg = dataclasses.replace(cs.attn_cfg(torch, f"B6-{mode}", D, causal), fold_k_scale=True,
+                                  fuse_v_mean=False, causal_dynamic=causal,
+                                  kv_len_dynamic=not causal)
+        xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+        kw.pop("v_mean")
+        if causal:   # q_start - kv_start >= S: every key visible
+            kw["offsets"] = torch.tensor([3 * S, 0], dtype=torch.int32, device="cuda")
+        else:
+            kw["kv_true"] = torch.tensor([S], dtype=torch.int32, device="cuda")
+        res[name] = time_fn(lambda: attention_kernel(*xs, cfg, **kw), warmup=3, reps=20) * 1e3
+        del q, k, v, xs, kw
+    return res
+
+
+def ring_rows(torch, cs, reps=3):
+    """ms per call of the ring over 4 virtual ranks at CogVideoX1.5 and at
+    Llama-3.1-8B 65,536 causal (int8 PV, static), and the median over
+    ``reps`` calls of where a call's time goes: the device time of its
+    attention launches (CUDA events around each), of which the V widening,
+    and the rest."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for label, ((B, H, Hk, S, D), causal) in (("ring cog", (cs.COG_SHAPE, False)),
+                                              ("ring llama", (cs.LLAMA_LONG, True))):
+        q, k, v = cs.realistic_qkv(torch, B, H, Hk, S, D, cs.SEED + 81 + int(causal))
+        call = lambda: cs.virtual_ring(torch, q, k, v, 4, is_causal=causal)  # noqa: E731
+        res[label] = time_fn(call, warmup=1, reps=reps) * 1e3
+        real, real_widen = tatt.attention_kernel, tatt.widen_v_codes
+        spans = []
+
+        def timed(fn, what):
+            def run(*args, **kw):
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                out = fn(*args, **kw)
+                e.record()
+                spans.append((what, s, e))
+                return out
+            return run
+
+        tatt.attention_kernel = timed(real, "B10 launches")
+        tatt.widen_v_codes = timed(real_widen, "of which V widening")
+        rows = []
+        try:
+            for _ in range(reps):
+                spans.clear()
+                torch.cuda.synchronize()
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+                call()
+                e.record()
+                torch.cuda.synchronize()
+                row = {"total": s.elapsed_time(e), "B10 launches": 0.0, "of which V widening": 0.0}
+                for what, a, b in spans:
+                    row[what] += a.elapsed_time(b)
+                row["rest"] = row["total"] - row["B10 launches"]
+                rows.append(row)
+        finally:
+            tatt.attention_kernel, tatt.widen_v_codes = real, real_widen
+        res[label + " parts"] = {key: sorted(r[key] for r in rows)[len(rows) // 2]
+                                 for key in rows[0]}
+        del q, k, v
+        torch.cuda.empty_cache()
     return res
 
 
