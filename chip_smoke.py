@@ -138,8 +138,8 @@ Phases (any failure exits non-zero):
    tiles, ``kv_len < Sk``, causal with Sq < Sk, NHD strides, a batch of two
    with sliced heads, a kv length of whole tiles and a one-column tail;
 13. C1 and C2 bf16 with no mask and no window on their Hopper kernels
-   (``csrc/backward_sm90.cu``; slice 9; the int8, window, bool and head dim
-   256 forms stay on ``csrc/backward.cu``), each shape counted on its own,
+   (``csrc/backward_sm90.cu``; slice 9; the window, bool and head dim 256
+   forms stay on ``csrc/backward.cu``), each shape counted on its own,
    after ``ptxas``'s report for the source (no spill allowed):
    ``attention_backward`` from the port's flash forward on realistic inputs
    at the Llama-3-8B-width fine-tune's shape (1, 32/8, 8,192, 128, causal)
@@ -188,7 +188,18 @@ Phases (any failure exits non-zero):
    padded chunk with fewer than 64 real rows, a chunk of padding only, an
    unaligned Sk with per-column K scales, GQA, Q groups of 4, 32 and 128
    rows, static and online each).  Its rows replace phases 4's and 10's of
-   the same keys.
+   the same keys;
+16. C1 and C2 int8 (the S-recompute) with no mask and no window on their
+   Hopper kernels (``csrc/backward_q8_sm90.cu``; slice 12; run beside phase
+   13, whose shapes, inputs and checks it repeats with ``quantized=True``):
+   ``ptxas``'s report (no spill allowed), ``attention_backward`` at the
+   Llama-3-8B-width and CogVideoX1.5 shapes and the ring's two per-pair
+   forms, each counted on its own, the kernels on all heads against the
+   plain version on the first and last q heads, their times beside their
+   bounds and the bf16 pair's on the same inputs, then the edge cases at
+   head dims 64 and 128 on every head and the one-row tail against the
+   CPU call.  Phases 9f and 10 replay what the training and ring paths
+   launched on the same route.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -313,6 +324,7 @@ def main() -> int:
     # inference mode
     with torch.no_grad():
         kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
+        kernels += timed_phase("phase 16", run_bwd_q8_sm90, torch, st, totals)
     with torch.inference_mode():   # phases 14's and 15's rows replace the earlier ones of their keys
         new = timed_phase("phase 14", run_fwd_sm90, torch, st, totals)
         new += timed_phase("phase 15", run_q8_sm90, torch, st, totals)
@@ -2419,8 +2431,8 @@ def backward_kernel_checks(torch, seen, totals):
     length (calc_diff <= KERNEL_BAR per gradient), the gradients of KV
     head 0 against the f32 exact ones, and, for the configurations that
     stay on ``backward.cu``, the kernel's time at the path's full shape,
-    its bound and, for bf16, the library's backward (phase 13 times those
-    on ``backward_sm90.cu``)."""
+    its bound and, for bf16, the library's backward (phases 13 and 16 time
+    those on ``backward_sm90.cu`` and ``backward_q8_sm90.cu``)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
     entries, failures, exact_done = [], [], set()
@@ -2474,7 +2486,7 @@ def backward_kernel_checks(torch, seen, totals):
                 grad_check(torch, f"{cfg} (C1 + C2) from the exact forward, sequence {b}, "
                                   f"q heads 0-{G - 1}",
                            (got_b[0][0], got_b[1][0, 0], got_b[2][0, 0]), ref, quant)
-        if bwd_source(name, D) == SRC_BWD_SM90:   # timed, with its JSON entry, in phase 13
+        if bwd_source(name, D) != SRC_BWD:   # timed, with its JSON entry, in phase 13 or 16
             continue
         pf = tbwd.prepare(q, k, v, o, lse, do, sm_scale=kw["sm_scale"], quantized=quant,
                           attn_mask=mask)
@@ -3609,6 +3621,7 @@ def run_flash(torch, st, totals):
 # ------------------------------------------- slice 9: C1/C2 on Hopper ----
 
 SRC_BWD_SM90 = "sageattention_tpu_torch/csrc/backward_sm90.cu"
+SRC_BWD_Q8_SM90 = "sageattention_tpu_torch/csrc/backward_q8_sm90.cu"
 # C1/C2's bf16 forms with no mask and no window on the main paths: B, Hq, Hk,
 # Sq, Sk, D, causal.  Phase 9's Llama-3-8B-width fine-tune and CogVideoX1.5-
 # width DiT step; the ring's per-pair form (a given di, f32 outputs) on a
@@ -3634,9 +3647,11 @@ BWD_TAIL_S = 129
 def bwd_source(name, D):
     """The source that runs C1/C2 launch key ``name`` at head dim ``D``."""
     from sageattention_tpu_torch.ops import backward as tbwd
-    routed = tbwd.bwd_sm90_route(name[3:].startswith("int8"), name.endswith("-bool"),
-                                 "-window" in name, tbwd._head_dim(D))
-    return SRC_BWD_SM90 if routed else SRC_BWD
+    cfg = (name[3:].startswith("int8"), name.endswith("-bool"), "-window" in name,
+           tbwd._head_dim(D))
+    if tbwd.bwd_sm90_route(*cfg):
+        return SRC_BWD_SM90
+    return SRC_BWD_Q8_SM90 if tbwd.bwd_q8_sm90_route(*cfg) else SRC_BWD
 
 
 def bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, seed):
@@ -3650,15 +3665,17 @@ def bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, seed):
     return q, k, v, o, lse, do
 
 
-def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=False):
-    """C1 and C2 launched once each on all heads (f32 outputs), each
-    gradient held to ``attention_backward_plain`` at KERNEL_BAR on the first
-    q heads of kv head 0 and the last q head with the last kv head (or, with
-    ``every_head``, on all of them).  Returns (max_abs_err, plain ms of the
-    first sample)."""
+def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=False,
+                 quantized=False):
+    """C1 and C2 (int8 with ``quantized``) launched once each on all heads
+    (f32 outputs), each gradient held to ``attention_backward_plain`` at
+    KERNEL_BAR on the first q heads of kv head 0 and the last q head with
+    the last kv head (or, with ``every_head``, on all of them).  Returns
+    (max_abs_err, plain ms of the first sample)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff
-    pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=q.shape[-1] ** -0.5, di=di)
+    pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=q.shape[-1] ** -0.5, di=di,
+                      quantized=quantized)
     pa.update(causal=causal, out_dtype=torch.float32)
     got = tbwd.attention_backward_kernel(**pa)
     Hq, Hk = q.shape[1], k.shape[1]
@@ -3669,8 +3686,8 @@ def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=F
             parts.append((slice(Hq - 1, Hq), slice(Hk - 1, Hk)))
     err, plain_ms = 0.0, None
     for hs, ks in parts:
-        sub = dict(pa, **{n: pa[n][:, hs] for n in ("q", "do", "lse2", "di")},
-                   **{n: pa[n][:, ks] for n in ("k", "v")})
+        sub = dict(pa, **{n: pa[n][:, hs] for n in ("q", "do", "lse2", "di", "qs") if n in pa},
+                   **{n: pa[n][:, ks] for n in ("k", "v", "ks") if n in pa})
         plain, ms = timed_call(torch, lambda: tbwd.attention_backward_plain(**sub))
         plain_ms = ms if plain_ms is None else plain_ms
         ds = [calc_diff(a[:, hs], b) for a, b in zip(got, plain)]
@@ -3682,29 +3699,41 @@ def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=F
     return err, plain_ms
 
 
-def bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=None, f32_out=False):
+def bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=None, f32_out=False,
+               quantized=False):
     """C1's and C2's times on all heads, each alone (bf16 outputs, or f32
-    with ``f32_out``), their bounds, and the library's backward (C1 + C2).
-    Returns {kernel: (ms, bound)}, library_ms."""
+    with ``f32_out``), and their bounds; bf16: the library's backward (C1 +
+    C2); int8 (``quantized``, whose time includes the wrapper's dequantized
+    copy): the bf16 pair's times on the same inputs beside them.  Returns
+    {kernel: (ms, bound)}, library_ms (None for int8) and the bf16 pair's
+    {kernel: ms} (int8 only)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     B, Hq, Sq, D = q.shape
-    pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5, di=di)
-    pa.update(causal=causal, out_dtype=torch.float32 if f32_out else torch.bfloat16)
     pairs = bwd_pairs(torch, B, Hq, Sq, k.shape[2], {"is_causal": causal})
-    res = {}
-    for kernel in ("C1", "C2"):
-        ms = kernel_ms(lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,)))
-        out = tbwd.attention_backward_kernel(**pa, kernels=(kernel,))
-        reads = [pa[n] for n in ("q", "k", "v", "do", "lse2", "di")]
-        res[kernel] = (ms, bwd_bound(kernel, False, pairs, pa["q"].shape[-1],
-                                     nbytes(*reads, *(x for x in out if x is not None))))
-        del out
-    lib = library_bwd_ms(torch, q, k, v, do, {"is_causal": causal, "sm_scale": D ** -0.5})
-    print(f"     C1/C2 at {what}: " + ", ".join(
+    res, bf16 = {}, {}
+    for quant in (quantized, False) if quantized else (False,):
+        pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5, di=di, quantized=quant)
+        pa.update(causal=causal, out_dtype=torch.float32 if f32_out else torch.bfloat16)
+        for kernel in ("C1", "C2"):
+            ms = kernel_ms(lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,)))
+            if quant != quantized:   # the bf16 pair beside the int8 one
+                bf16[kernel] = ms
+                continue
+            out = tbwd.attention_backward_kernel(**pa, kernels=(kernel,))
+            reads = [pa[n] for n in ("q", "k", "v", "do", "lse2", "di", "qs", "ks") if n in pa]
+            res[kernel] = (ms, bwd_bound(kernel, quant, pairs, pa["q"].shape[-1],
+                                         nbytes(*reads, *(x for x in out if x is not None))))
+            del out
+        del pa
+    lib = None if quantized else library_bwd_ms(torch, q, k, v, do,
+                                                {"is_causal": causal, "sm_scale": D ** -0.5})
+    beside = (f"library (C1 + C2) {lib:.3f} ms" if lib is not None else
+              f"bf16 sm90 pair {bf16['C1']:.3f} / {bf16['C2']:.3f} ms")
+    print(f"     C1/C2 {'int8' if quantized else 'bf16'} at {what}: " + ", ".join(
         f"{kn} {ms:.3f} ms (bound {b[0]:.3f}, {b[1]})" for kn, (ms, b) in res.items())
-          + f", C1 + C2 {res['C1'][0] + res['C2'][0]:.3f} ms, library (C1 + C2) {lib:.3f} ms, "
-          f"{pairs} kept pairs", flush=True)
-    return res, lib
+          + f", C1 + C2 {res['C1'][0] + res['C2'][0]:.3f} ms, {beside}, {pairs} kept pairs",
+          flush=True)
+    return res, lib, bf16
 
 
 def sm90_ptxas(source="backward_sm90"):
@@ -3725,19 +3754,37 @@ def sm90_ptxas(source="backward_sm90"):
 
 def run_bwd_sm90(torch, st, totals):
     """Phase 13 (slice 9): C1 and C2 bf16 with no mask and no window on
-    ``csrc/backward_sm90.cu``, each shape counted on its own.  At the main
-    paths' shapes: ``attention_backward`` from the port's flash forward on
-    realistic inputs (one C1 and one C2 launch), C1 and C2 on all heads
-    against the plain version on the first and the last heads, their times
-    beside their bounds and the library's backward; the ring's per-pair form
-    (a given di, f32 outputs) on a CogVideoX1.5 chunk pair and a diagonal
-    Llama-3.1-8B pair, the same way; then the edge cases at D = 64 and 128
-    against the plain version on every head, and a one-row tail through
-    ``attention_backward`` against the same call on the CPU.  Returns the
-    JSON entries of the four routed launch keys."""
+    ``csrc/backward_sm90.cu`` (:func:`bwd_sm90_phase`).  Returns the JSON
+    entries of the four routed launch keys."""
+    sm90_ptxas("backward_sm90")
+    return bwd_sm90_phase(torch, totals, quantized=False)
+
+
+def run_bwd_q8_sm90(torch, st, totals):
+    """Phase 16 (slice 12): C1 and C2 int8 (the S-recompute) with no mask
+    and no window on ``csrc/backward_q8_sm90.cu`` (:func:`bwd_sm90_phase`),
+    each timed beside the bf16 pair on the same inputs.  Returns the JSON
+    entries of the four routed launch keys."""
+    sm90_ptxas("backward_q8_sm90")
+    return bwd_sm90_phase(torch, totals, quantized=True)
+
+
+def bwd_sm90_phase(torch, totals, quantized):
+    """C1 and C2 on their Hopper kernel, bf16 or int8 (``quantized``), each
+    shape counted on its own.  At the main paths' shapes:
+    ``attention_backward`` from the port's flash forward on realistic inputs
+    (one C1 and one C2 launch), C1 and C2 on all heads against the plain
+    version on the first and the last heads, their times beside their
+    bounds and the library's backward (bf16) or the bf16 pair (int8); the
+    ring's per-pair form (a given di, f32 outputs) on a CogVideoX1.5 chunk
+    pair and a diagonal Llama-3.1-8B pair, the same way; then the edge cases
+    at D = 64 and 128 against the plain version on every head, and a
+    one-row tail through ``attention_backward`` against the same call on the
+    CPU.  Returns the JSON entries of the four routed launch keys."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff
-    sm90_ptxas("backward_sm90")
+    form = "int8" if quantized else "bf16"
+    src = SRC_BWD_Q8_SM90 if quantized else SRC_BWD_SM90
     res, ring_text, errs = {}, [], []
     shapes = [(lb, s, False) for lb, s in BWD_SHAPES.items()] + [
         (lb, s, True) for lb, s in BWD_RING_PAIRS.items()]
@@ -3748,58 +3795,68 @@ def run_bwd_sm90(torch, st, totals):
         what = f"{label} ({B},{Hq}/{Hk},{Sq}x{Sk},{D}) causal={causal}" + (
             ", given di, f32 out" if ring else "")
         c = "-causal" if causal else ""
-        out, _ = counted_path(torch, f"{what}: attention_backward", (f"C1-bf16{c}", f"C2-bf16{c}"),
-                              {}, totals, lambda: tbwd.attention_backward(
+        keys = (f"C1-{form}{c}", f"C2-{form}{c}")
+        out, _ = counted_path(torch, f"{what}: attention_backward ({form})", keys, {}, totals,
+                              lambda: tbwd.attention_backward(
                                   q, k, v, None if ring else o, lse, do, sm_scale=D ** -0.5,
-                                  is_causal=causal, **kw))
-        exact_counts(what, read_counts(), {f"C1-bf16{c}": 1, f"C2-bf16{c}": 1})
+                                  is_causal=causal, quantized=quantized, **kw))
+        exact_counts(what, read_counts(), dict.fromkeys(keys, 1))
         check(all(bool(torch.isfinite(x).all()) for x in out)
               and [tuple(x.shape) for x in out] == [tuple(q.shape), tuple(k.shape), tuple(v.shape)],
               f"{what}: attention_backward's gradients finite, of the input shapes")
         del out
-        err, plain_ms = bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=di)
+        err, plain_ms = bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=di,
+                                     quantized=quantized)
         errs.append(err)
-        timing, lib = bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=di, f32_out=ring)
+        timing, lib, bf16 = bwd_timing(torch, what, q, k, v, o, lse, do, causal, di=di,
+                                       f32_out=ring, quantized=quantized)
         if ring:
             ring_text.append(f"{label}: C1 {timing['C1'][0]:.3f} / C2 {timing['C2'][0]:.3f} ms, "
-                             f"library {lib:.3f}")
+                             + (f"bf16 {bf16['C1']:.3f} / {bf16['C2']:.3f}" if quantized
+                                else f"library {lib:.3f}"))
         else:
-            res[c] = (err, plain_ms, timing, lib, what)
+            res[c] = (err, plain_ms, timing, lib, bf16, what)
         del q, k, v, o, lse, do, di
         torch.cuda.empty_cache()
     for D in (64, 128):
         for j, (label, (B, Hq, Hk, Sq, Sk, causal)) in enumerate(BWD_EDGES.items()):
-            what = f"{label}, D={D}"
+            what = f"{label}, D={D} ({form})"
             q, k, v, o, lse, do = bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, SEED + 100 + j)
             c = "-causal" if causal else ""
-            counted_path(torch, what, (f"C1-bf16{c}", f"C2-bf16{c}"), {}, totals,
+            counted_path(torch, what, (f"C1-{form}{c}", f"C2-{form}{c}"), {}, totals,
                          lambda: tbwd.attention_backward(q, k, v, o, lse, do, sm_scale=D ** -0.5,
-                                                         is_causal=causal))
-            errs.append(bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, every_head=True)[0])
+                                                         is_causal=causal, quantized=quantized))
+            errs.append(bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, every_head=True,
+                                     quantized=quantized)[0])
         q, k, v, o, lse, do = bwd_inputs(torch, 1, 4, 1, BWD_TAIL_S, BWD_TAIL_S, D, True,
                                          SEED + 110)
-        what = f"one-row tail (1,4/1,{BWD_TAIL_S},{D}) causal through attention_backward"
-        got, _ = counted_path(torch, what, ("C1-bf16-causal", "C2-bf16-causal"), {}, totals,
+        what = (f"one-row tail (1,4/1,{BWD_TAIL_S},{D}) causal through attention_backward "
+                f"({form})")
+        got, _ = counted_path(torch, what, (f"C1-{form}-causal", f"C2-{form}-causal"), {}, totals,
                               lambda: tbwd.attention_backward(q, k, v, o, lse, do,
                                                               sm_scale=D ** -0.5, is_causal=True,
+                                                              quantized=quantized,
                                                               out_dtype=torch.float32))
         ref = tbwd.attention_backward(*(x.cpu() for x in (q, k, v, o, lse, do)),
-                                      sm_scale=D ** -0.5, is_causal=True, out_dtype=torch.float32)
+                                      sm_scale=D ** -0.5, is_causal=True, quantized=quantized,
+                                      out_dtype=torch.float32)
         ds = [calc_diff(a.cpu(), b) for a, b in zip(got, ref)]
         errs.append(max(float((a.cpu() - b).abs().max()) for a, b in zip(got, ref)))
         check(all(d <= KERNEL_BAR for d in ds), f"{what} vs the same call on the CPU (the plain "
               "version): dq/dk/dv calc_diff " + "/".join(f"{d:.3e}" for d in ds)
               + f" <= {KERNEL_BAR}")
     entries = []
-    for c, (err, plain_ms, timing, lib, what) in res.items():
+    beside = "the bf16 sm90 pair on the same inputs" if quantized else "library: C1 + C2"
+    for c, (err, plain_ms, timing, lib, bf16, what) in res.items():
         for kernel in ("C1", "C2"):
             ms, bound = timing[kernel]
-            entries.append({"name": f"{kernel}-bf16{c}", "route": "cuda", "source": SRC_BWD_SM90,
+            extra = f" (bf16 {bf16[kernel]:.3f} ms)" if quantized else ""
+            entries.append({"name": f"{kernel}-{form}{c}", "route": "cuda", "source": src,
                             "replaces": TPU_KERNELS[kernel], "launches": 0,
                             "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
-                            "shape": f"{what}; plain (C1 + C2) on the first and last q heads; "
-                                     "library: C1 + C2; " + "; ".join(ring_text)})
+                            "shape": f"{what}{extra}; plain (C1 + C2) on the first and last q "
+                                     f"heads; {beside}; " + "; ".join(ring_text)})
     return entries
 
 

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
            "attention_ring", "attention_lowbit", "flash_sm90", "attention_sm90",
-           "attention_q8_sm90", "decode", "backward", "backward_sm90")
+           "attention_q8_sm90", "decode", "backward", "backward_sm90", "backward_q8_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -74,6 +74,10 @@ _BWD_ARGS = [_I] * 3 + [_P] * 9 + [_LL] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_F] 
 # Skp, causal), (fold, dk_fin, dq_fin), stream
 _BWD_SM90_ARGS = [_I] * 2 + [_P] * 9 + [_I] * 7 + [_F] * 3 + [_P]
 
+# (which, D), (q8, qd, k8, kd, v, dO, lse2, di, qs, ks), (dk, dv, dq), (out_f32,
+# B, Hq, Hk, Sqp, Skp, causal), (fold, dk_fin, dq_fin), stream
+_BWD_Q8_SM90_ARGS = [_I] * 2 + [_P] * 13 + [_I] * 7 + [_F] * 3 + [_P]
+
 # C signatures: name -> (library, argtypes)
 SIGNATURES = {
     "sage_prep_kv": ("prep_kv", [_I, _I, _I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
@@ -97,6 +101,7 @@ SIGNATURES = {
     "sage_decode": ("decode", _DECODE_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
     "sage_bwd_sm90": ("backward_sm90", _BWD_SM90_ARGS),
+    "sage_bwd_q8_sm90": ("backward_q8_sm90", _BWD_Q8_SM90_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "quant": "sage_quant_error_string",
@@ -111,7 +116,8 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_q8_sm90": "sage_attn_q8_sm90_error_string",
                  "decode": "sage_decode_error_string",
                  "backward": "sage_bwd_error_string",
-                 "backward_sm90": "sage_bwd_sm90_error_string"}
+                 "backward_sm90": "sage_bwd_sm90_error_string",
+                 "backward_q8_sm90": "sage_bwd_q8_sm90_error_string"}
 
 _lock = threading.Lock()
 _libs: dict = {}

@@ -27,11 +27,13 @@ sequences to the kernel's 64-row tiles and the head dim to 64/128/256,
 padded q rows at lse2 = 3e38 so their P is 0; ``D_i``; the int8 codes;
 the GQA group sum in f32) around :func:`attention_backward_kernel` (CUDA
 tensors) or :func:`attention_backward_plain` (CPU tensors).  On the card
-the bf16 configurations with no mask and no window at head dims 64 and 128
-(:func:`bwd_sm90_route`) run ``csrc/backward_sm90.cu`` (TMA, ``wgmma``,
-warpgroups taking turns), every other one ``csrc/backward.cu``; the plain
-version has no running max and no per-tile rounding, so it stands for
-both whatever their tiles.  The two kernels are counted
+the configurations with no mask and no window at head dims 64 and 128 run
+on Hopper kernels (TMA, ``wgmma``, warpgroups taking turns): the bf16 ones
+(:func:`bwd_sm90_route`) ``csrc/backward_sm90.cu``, the int8 ones
+(:func:`bwd_q8_sm90_route`) ``csrc/backward_q8_sm90.cu``, whose dK and dQ
+products read the codes dequantized by :func:`dequant_rows`; every other
+one runs ``csrc/backward.cu``.  The plain version has no running max and no
+per-tile rounding, so it stands for all three whatever their tiles.  The two kernels are counted
 per configuration in ``attention_backward_kernel.launches`` (``LAUNCHES``)
 under keys
 ``C1-<bf16|int8>[-causal|-window][-bool]`` and the same for C2.
@@ -95,6 +97,16 @@ def _keep(causal, window, sinks, rows, cols, mask_rows):
     if mask_rows is not None:
         keep = mask_rows != 0 if keep is None else keep & (mask_rows != 0)
     return keep
+
+
+def dequant_rows(codes, scale):
+    """bf16 copy of int8 ``codes [B, H, S, D]`` with row scales ``scale [B,
+    H, S]``, ``bf16(f32(code) * scale)`` as the plain version rounds it: the
+    q and k that ``csrc/backward_q8_sm90.cu``'s dK and dQ products read
+    (JAX dequantizes in the kernel).  One elementwise pass, computed in f32
+    and written in bf16."""
+    out = torch.empty(codes.shape, dtype=torch.bfloat16, device=codes.device)
+    return torch.mul(codes, scale[..., None], out=out)
 
 
 def attention_backward_plain(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, causal,
@@ -166,6 +178,14 @@ def bwd_sm90_route(quantized: bool, masked: bool, window: int, D: int) -> bool:
     return not quantized and not masked and not window and D in (64, 128)
 
 
+def bwd_q8_sm90_route(quantized: bool, masked: bool, window: int, D: int) -> bool:
+    """Does C1/C2 in this configuration run ``csrc/backward_q8_sm90.cu``?
+    The int8 S-recompute with no mask and no window, causal or not, at head
+    dims 64 and 128 (``D`` padded); its window, bool-mask and head-dim-256
+    forms stay on ``csrc/backward.cu``."""
+    return quantized and not masked and not window and D in (64, 128)
+
+
 def _aligned16(x):
     """``x`` itself, or a copy when its base is not 16-byte aligned (TMA)."""
     return x if x.data_ptr() % 16 == 0 else x.clone()
@@ -176,7 +196,9 @@ def attention_backward_kernel(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, ca
                               out_dtype=torch.float32, kernels=("C1", "C2")):
     """Launch C1 and C2 on CUDA tensors; same arguments and returns as
     :func:`attention_backward_plain`.  A configuration that
-    :func:`bwd_sm90_route` takes launches ``sage_bwd_sm90`` and raises if it
+    :func:`bwd_sm90_route` takes launches ``sage_bwd_sm90``, one that
+    :func:`bwd_q8_sm90_route` takes ``sage_bwd_q8_sm90`` (after
+    :func:`dequant_rows` of the codes its kernels read), each raising if it
     cannot, with no fallback; the rest launch ``sage_attn_bwd``, under the
     same launch keys.  ``kernels`` may name one of the two (to time it
     alone); the gradients of the other come back as None."""
@@ -212,6 +234,15 @@ def attention_backward_kernel(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, ca
         q, k, v, do, lse2, di = (_aligned16(x) for x in (q, k, v, do, lse2, di))
         fn = "sage_bwd_sm90"
         common = [D, *(x.data_ptr() for x in (q, k, v, do, lse2, di)), *outs, int(out_f32), B,
+                  Hq, Hk, Sqp, Skp, int(causal), _F32(fold), _F32(dk_fin), _F32(dq_fin)]
+    elif bwd_q8_sm90_route(quant, mask is not None, window, D):
+        # C1 reads q dequantized, C2 k
+        qd = dequant_rows(q, qs) if "C1" in kernels else None
+        kd = dequant_rows(k, ks) if "C2" in kernels else None
+        q, k, v, do, lse2, di, qs, ks = (_aligned16(x) for x in (q, k, v, do, lse2, di, qs, ks))
+        fn = "sage_bwd_q8_sm90"
+        common = [D, q.data_ptr(), ptr(qd), k.data_ptr(), ptr(kd),
+                  *(x.data_ptr() for x in (v, do, lse2, di, qs, ks)), *outs, int(out_f32), B,
                   Hq, Hk, Sqp, Skp, int(causal), _F32(fold), _F32(dk_fin), _F32(dq_fin)]
     else:
         fn = "sage_attn_bwd"

@@ -39,6 +39,8 @@ from sageattention_tpu_torch.ops.quant_kernels import (channel_stats, quant_int8
 from sageattention_tpu_torch.ops.reference import sdpa
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 
 def _bf16_rand(shape, rng, scale=1.0):
     x = rng.standard_normal(shape).astype(np.float32) * scale

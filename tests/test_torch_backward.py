@@ -34,6 +34,8 @@ from sageattention_tpu.utils.testing import calc_diff
 from sageattention_tpu_torch.models import sage_dot_product_attention
 from sageattention_tpu_torch.ops import backward as tbwd
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 JAX_BAR = 1e-4
 ORACLE_REL = 3e-2
 INT8_COS = 1.5e-3

@@ -30,6 +30,8 @@ from sageattention_tpu_torch.ops.reference import sdpa, sdpa_nhd
 from sageattention_tpu_torch.utils import layout as tlayout
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 PINNED = dict(pv_dtype="int8", k_scale_mode="head", compute_dtype="native",
               softmax_mode="auto", smooth_k=True, smooth_v=True,
               qk_quant_gran="per_thread")

@@ -24,6 +24,8 @@ from sageattention_tpu.utils.testing import calc_diff
 from sageattention_tpu_torch import decode as tdec
 from sageattention_tpu_torch.ops import attention as tatt
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 BAR = 1.5e-3
 FP8_BAR = 2.5e-3
 

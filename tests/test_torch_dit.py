@@ -24,6 +24,8 @@ from sageattention_tpu_torch.models import dit_state_dict_from_jax, sage_dot_pro
 from sageattention_tpu_torch.ops.reference import sdpa_nhd
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 SMALL = dict(hidden=128, heads=2, depth=2, frames=2, height=16, width=16, patch=2,
              text_len=16, text_dim=64, in_channels=4, zero_init_gates=False)
 PINNED = dict(pv_dtype="int8", k_scale_mode="head", compute_dtype="native",

@@ -28,6 +28,8 @@ from sageattention_tpu.utils.testing import calc_diff
 from sageattention_tpu_torch.models import (LlamaConfig, LlamaLM, llm_state_dict_from_jax,
                                             sage_dot_product_attention)
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 CFG = dict(hidden=128, heads=4, kv_heads=2, depth=2, vocab=256)
 PAGE = 256
 

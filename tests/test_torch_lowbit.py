@@ -29,6 +29,8 @@ from sageattention_tpu_torch.ops import attention as tatt
 from sageattention_tpu_torch.ops import lowbit as tlow
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 
 def _np(x):
     return np.asarray(x.float() if isinstance(x, torch.Tensor) else x, dtype=np.float32)

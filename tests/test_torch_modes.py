@@ -28,6 +28,8 @@ from sageattention_tpu_torch import core as tcore
 from sageattention_tpu_torch.ops.reference import sdpa
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 ORACLE_BAR = {"bf16": 5e-4, "int8": 1e-3, "fp8": 5e-3}
 JAX_BAR = {"bf16": 1e-5, "int8": 1e-5, "fp8": 5e-4}
 ENTRIES = {

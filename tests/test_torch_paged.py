@@ -23,6 +23,8 @@ from sageattention_tpu.utils.testing import calc_diff
 from sageattention_tpu_torch import paged as tpg
 from sageattention_tpu_torch.ops import paged_decode as tpd
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 BAR = 1.5e-3
 FP8_BAR = 2.5e-3
 PKG_BAR = 1e-4     # port vs JAX: the same bf16-P numerics, other sum orders

@@ -50,6 +50,8 @@ import torch
 
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 RING_JAX_BAR = 2e-4
 LSE_JAX_BAR = 5e-3
 SINGLE_BAR, SINGLE_PAD_BAR = 2e-4, 5e-4

@@ -19,6 +19,8 @@ from sageattention_tpu.ops import quant_pallas as qp
 from sageattention_tpu_torch.ops import _build
 from sageattention_tpu_torch.ops import quant_fused as qf
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 
 def _rand(shape, seed, scale=1.0, outlier=False, dtype=np.float32):
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale

@@ -26,6 +26,8 @@ from sageattention_tpu_torch.ops import _build
 from sageattention_tpu_torch.ops import quant as tquant
 from sageattention_tpu_torch.ops import quant_kernels as qk
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 
 def _rand(shape, seed, scale=1.0, outlier=True):
     x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32) * scale

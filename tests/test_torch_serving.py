@@ -15,6 +15,8 @@ from sageattention_tpu_torch.paged import (build_table, paged_insert, paged_pref
 from sageattention_tpu_torch.serving import PrefixCachingAllocator
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 
 def test_reserve_release():
     a = PrefixCachingAllocator(8, page_size=4)

@@ -34,6 +34,8 @@ from sageattention_tpu_torch.ops import attention as tatt
 from sageattention_tpu_torch.ops import quant as tquant
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 JAX_BAR = 1e-5
 LSE_JAX_ATOL = 5e-3
 LSE_EXACT_ATOL = 1e-5

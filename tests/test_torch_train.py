@@ -31,6 +31,8 @@ from sageattention_tpu_torch.models import (LlamaConfig, LlamaLM, dit_state_dict
                                             llm_state_dict_from_jax, sage_dot_product_attention)
 from sageattention_tpu_torch.models import dit as tdit
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 LOSS_REL = 1e-3
 GRAD_BAR = 1e-3
 LLM = dict(hidden=128, heads=4, kv_heads=2, depth=2, vocab=256)

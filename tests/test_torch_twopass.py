@@ -24,6 +24,8 @@ from sageattention_tpu_torch.ops import quant_fused as qf
 from sageattention_tpu_torch.ops.reference import sdpa
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 PINNED = dict(pv_dtype="int8", k_scale_mode="head", compute_dtype="native",
               smooth_k=True, smooth_v=True, qk_quant_gran="per_thread")
 

@@ -35,6 +35,8 @@ from sageattention_tpu_torch.models import (DiT, DiTConfig, dit_state_dict_from_
 from sageattention_tpu_torch.ops import quant_kernels as qk
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 ORACLE_BAR = {"int8": 1e-3, "bf16": 1e-3, "fp8": 5e-3}
 JAX_BAR = {"int8": 1e-5, "bf16": 1e-5, "fp8": 5e-4}
 

@@ -26,6 +26,8 @@ from sageattention_tpu_torch.models import sage_dot_product_attention
 from sageattention_tpu_torch.ops import attention as tatt
 from sageattention_tpu_torch.utils.testing import calc_diff
 
+from port_cpu import yield_cpu  # noqa: F401  (one torch thread, low CPU priority)
+
 ORACLE_BAR = {"int8": 1e-3, "bf16": 1e-3, "fp8": 5e-3}
 JAX_BAR = 1e-5
 

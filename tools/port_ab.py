@@ -30,14 +30,13 @@ B4-float library``: ``F.scaled_dot_product_attention`` with the bias and
 the causal mask as one float ``attn_mask``);
 
 the time (ms) of C1 and C2, each alone, in the forms that stay on
-``backward.cu`` (``-int8`` at CogVideoX1.5 and ``-int8-causal``,
-``-window`` with a 4,096-token window and ``-causal-bool`` with a
-left-padding mask at Llama-3-8B width, (1, 32/8, 8192, 128)) and then the
-bf16 forms that ``backward_sm90.cu`` takes (``-bf16`` at CogVideoX1.5,
-``-bf16-causal`` at Llama-3-8B width), from the port's flash forward on the
-same inputs, with the library's backward (one ``torch.autograd.grad``
-through ``F.scaled_dot_product_attention``, ``C1+C2 library``) at both
-shapes;
+``backward.cu`` (``-window`` with a 4,096-token window and
+``-causal-bool`` with a left-padding mask at Llama-3-8B width, (1, 32/8,
+8192, 128)) and then the bf16 forms that ``backward_sm90.cu`` takes
+(``-bf16`` at CogVideoX1.5, ``-bf16-causal`` at Llama-3-8B width), from the
+port's flash forward on the same inputs, with the library's backward (one
+``torch.autograd.grad`` through ``F.scaled_dot_product_attention``,
+``C1+C2 library``) at both shapes;
 
 for the training steps of ``chip_smoke.py``'s phase 9 with the port's
 exact attention (``flash_dot_product_attention``: the B4 forward and the
@@ -54,7 +53,17 @@ heads, 5,120 x 5,120, hd 64); and the ring over 4 virtual ranks
 (``chip_smoke.virtual_ring``) at CogVideoX1.5 and at Llama-3.1-8B 65,536
 causal: ms per call, and where one call spends it (``ring parts``: the
 device time of its attention launches, of which the widening of the V codes
-to bf16, and the rest: prep, the safety read, the merges).
+to bf16, and the rest: prep, the safety read, the merges);
+
+and last, the kernels this version of the tool was written for: the int8
+C1 and C2 (the S-recompute, each alone, bf16 outputs) at CogVideoX1.5
+(``-int8``) and Llama-3-8B width (``-int8-causal``), and in the ring's
+per-pair form (a given di, f32 outputs) on a CogVideoX1.5 chunk pair and a
+diagonal Llama-3.1-8B pair, each with where one launch spends its time
+(``parts``: the kernel, the dequantized bf16 copy of the codes it reads in
+trees that make one, and the rest); then the 2-block CogVideoX1.5-width
+DiT's Adam step through ``sage_dot_product_attention``, whose non-causal
+gradient takes the int8 backward (``cog DiT train step sage``).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
@@ -84,12 +93,16 @@ B4_FORMS = {"B4-fp4": dict(p_sim_fp4=True), "B4-window": dict(window=4096)}
 # C1/C2: B, Hq, Hk, S, D, causal; the forms that stay on backward.cu first,
 # the routed bf16 forms last (as B4 above)
 BWD_SHAPES = {"cog": (1, 48, 48, 17776, 64, False), "llama8k": (1, 32, 8, 8192, 128, True)}
-BWD_FORMS = (("cog", "int8", dict(quantized=True)),
-             ("llama8k", "int8-causal", dict(quantized=True)),
-             ("llama8k", "bf16-window", dict(window=4096)),
+BWD_FORMS = (("llama8k", "bf16-window", dict(window=4096)),
              ("llama8k", "bf16-causal-bool", dict(mask=True)),
              ("cog", "bf16", {}),
              ("llama8k", "bf16-causal", {}))
+# the int8 C1/C2 (timed last): B, Hq, Hk, S, D, causal, the ring's per-pair
+# form (a given di, f32 outputs)
+Q8_BWD = {"cog": (1, 48, 48, 17776, 64, False, False),
+          "llama8k": (1, 32, 8, 8192, 128, True, False),
+          "ring cog pair": (1, 48, 48, 5120, 64, False, True),
+          "ring llama diagonal pair": (1, 32, 8, 16384, 128, True, True)}
 
 
 def one_tree(tree: str) -> dict:
@@ -136,6 +149,36 @@ def one_tree(tree: str) -> dict:
     with torch.inference_mode():
         res.update(q8_rows(torch, cs))
         res.update(ring_rows(torch, cs))
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        res.update(q8_bwd_rows(torch, cs, st, _build))
+    torch.cuda.empty_cache()
+    res.update(sage_dit_step(torch, cs))
+    return res
+
+
+def q8_bwd_rows(torch, cs, st, _build):
+    """The int8 C1's and C2's kernel ms, each alone, at each of ``Q8_BWD``
+    from the port's flash forward on realistic inputs, and where one launch
+    spends its time."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for label, (B, Hq, Hk, S, D, causal, ring) in Q8_BWD.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 1)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda").bfloat16()
+        o, lse = st.flash_attention(q, k, v, is_causal=causal, return_lse=True)
+        di = (do.float() * o.float()).sum(-1) if ring else None
+        pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5, quantized=True, di=di)
+        pa.update(causal=causal, out_dtype=torch.float32 if ring else torch.bfloat16)
+        for kernel in ("C1", "C2"):
+            call = lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,))  # noqa: E731
+            res[f"{label} {kernel}-int8"] = time_fn(call, warmup=2, reps=5) * 1e3
+            res[f"{label} {kernel}-int8 parts"] = call_parts(
+                torch, _build, call, reps=5, extra=((tbwd, "dequant_rows"),))
+        del q, k, v, o, lse, do, di, pa
+        torch.cuda.empty_cache()
     return res
 
 
@@ -303,30 +346,51 @@ def train_steps(torch, cs, warm=2, reps=6):
         lambda m: tdit.diffusion_loss(m, batch, noise=noise))}
     res = {}
     for key, (make, loss_fn) in models.items():
-        model = make()
-        opt = torch.optim.Adam(model.parameters(), lr=3e-4)
-        ms = []
-        for _ in range(warm + reps):
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            opt.zero_grad(set_to_none=True)
-            loss_fn(model).backward()
-            opt.step()
-            e.record()
-            torch.cuda.synchronize()
-            ms.append(s.elapsed_time(e))
-        res[key] = sorted(ms[warm:])[reps // 2]
-        res[key + " all"] = ms
-        del model, opt
+        res.update(adam_ms(torch, key, make(), loss_fn, warm, reps))
         torch.cuda.empty_cache()
     return res
 
 
-def call_parts(torch, _build, call, reps=10):
-    """Median over ``reps`` calls of where one call's time goes (ms)."""
+def sage_dit_step(torch, cs, warm=2, reps=6):
+    """ms per Adam step of the phase-9 CogVideoX1.5-width DiT with
+    ``sage_dot_product_attention``: the int8 forward and, the call being
+    non-causal, the int8 backward."""
+    from sageattention_tpu_torch.models import DiTConfig, sage_dot_product_attention
+    from sageattention_tpu_torch.models import dit as tdit
+    dcfg = DiTConfig(**cs.TRAIN["dit"])
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 64)
+    batch = tdit.example_inputs(dcfg, 1, generator=g, device="cuda")
+    noise = torch.randn(batch[0].shape, generator=g, device="cuda")
+    model = tdit.make_dit(dcfg, attn_fn=sage_dot_product_attention,
+                          device="cuda").init_weights(cs.SEED)
+    return adam_ms(torch, "cog DiT train step sage", model,
+                   lambda m: tdit.diffusion_loss(m, batch, noise=noise), warm, reps)
+
+
+def adam_ms(torch, key, model, loss_fn, warm, reps):
+    """``{key: median ms per Adam step over reps after warm, key all: every
+    step's ms}`` (CUDA events around each step)."""
+    opt = torch.optim.Adam(model.parameters(), lr=3e-4)
+    ms = []
+    for _ in range(warm + reps):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        opt.zero_grad(set_to_none=True)
+        loss_fn(model).backward()
+        opt.step()
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return {key: sorted(ms[warm:])[reps // 2], key + " all": ms}
+
+
+def call_parts(torch, _build, call, reps=10, extra=None):
+    """Median over ``reps`` calls of where one call's time goes (ms): each
+    kernel launch, each call of the functions ``extra`` names (``(module,
+    attribute)`` pairs; by default B1's V widening) in trees that have them,
+    and the rest."""
     from sageattention_tpu_torch.ops import attention as tatt
     real = _build.call
-    real_widen = getattr(tatt, "widen_v_codes", None)
     spans, launches = [], []
 
     def timed(fn, device, *args):
@@ -337,17 +401,21 @@ def call_parts(torch, _build, call, reps=10):
         e.record()
         spans.append((fn, s, e))
 
-    def widen(v):
-        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = real_widen(v)
-        e.record()
-        spans.append(("widen_v_codes", s, e))
-        return out
+    def wrap(name, fn):
+        def run(*args):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*args)
+            e.record()
+            spans.append((name, s, e))
+            return out
+        return run
 
+    wrapped = [(mod, name, getattr(mod, name)) for mod, name in
+               (extra if extra is not None else ((tatt, "widen_v_codes"),)) if hasattr(mod, name)]
     _build.call = timed
-    if real_widen is not None:
-        tatt.widen_v_codes = widen
+    for mod, name, fn in wrapped:
+        setattr(mod, name, wrap(name, fn))
     rows = []
     try:
         call()
@@ -367,8 +435,8 @@ def call_parts(torch, _build, call, reps=10):
             rows.append(row)
     finally:
         _build.call = real
-        if real_widen is not None:
-            tatt.widen_v_codes = real_widen
+        for mod, name, fn in wrapped:
+            setattr(mod, name, fn)
     return {key: sorted(r[key] for r in rows)[len(rows) // 2] for key in rows[0]}
 
 
