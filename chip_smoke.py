@@ -94,10 +94,12 @@ Phases (any failure exits non-zero):
    per-rank phase functions (``parallel/ring.py``), with its collectives
    done by hand.  10a: CogVideoX1.5 joint attention on 4 and 8 ranks
    (padded: the last shards' device true length, on 8 a shard of padding
-   only) with int8 PV (static), fp8 PV (online) and, on 4, bf16 PV against
-   single-device ``sageattn``; a Llama-3.1-8B 65,536-token causal prefill
-   (32/8 heads, hd 128) on 4 ranks (device offsets), static and, with x60
-   inputs, the online fallback; the ring's time split.  10b: the ring
+   only) with int8 PV (static), fp8 PV (online; within 5e-3 of
+   single-device ``sageattn_qk_int8_pv_fp8``, one V^T copy per launch) and,
+   on 4, bf16 PV against single-device ``sageattn``; a Llama-3.1-8B
+   65,536-token causal prefill (32/8 heads, hd 128) on 4 ranks (device
+   offsets), static and, with x60 inputs, the online fallback; the ring's
+   time split.  10b: the ring
    backward at Llama-3-8B width (32,768 tokens, causal, 4 ranks: the
    per-pair C1/C2 with a given di and f32 outputs) against single-device
    ``sageattn_qk_int8_pv_bf16``'s gradients.  10c: the CogVideoX1.5-width
@@ -118,13 +120,12 @@ Phases (any failure exits non-zero):
    at its full context (1, 32/8, 131,072, 128), timed once warm; A3 + A4
    against A1 + A2 on the HunyuanVideo K and V (codes equal, both times).
    11b, SageAttention3's FP4 simulation: ``sageattn3_blackwell`` at
-   CogVideoX1.5 and the HunyuanVideo shape against flash, and on a sampled
-   head against the S x S ``sageattn3``; the CogVideoX1.5-width DiT with
-   it as its attention (NHD -> HND in the smoke only).  Then A3 and A4
-   against their plain versions on every head, B4-fp4 on sampled heads and
-   rows (the plain version walks query-row chunks; at HunyuanVideo the
-   first, two middle and the last 64-row blocks) and causal at head dims
-   64 and 128, and the long B1 launches on sampled heads.  Phase 5 holds
+   CogVideoX1.5 and the HunyuanVideo shape (its B4-fp4 launch on
+   ``csrc/flash_sm90.cu``) against flash, and on a sampled head against the
+   S x S ``sageattn3``; the CogVideoX1.5-width DiT with it as its attention
+   (NHD -> HND in the smoke only).  Then A3 and A4 against their plain
+   versions on every head and the long B1 launches on sampled heads
+   (phase 17 holds the B4-fp4 launches to their plain version).  Phase 5 holds
    A3/A4 at unaligned lengths, f32/f16 inputs and strided NHD views, and
    the two-pass route end to end at a GQA shape against the one-pass call;
 12. B4 on its Hopper kernel (``csrc/flash_sm90.cu``; slice 8), each shape
@@ -199,7 +200,26 @@ Phases (any failure exits non-zero):
    bounds and the bf16 pair's on the same inputs, then the edge cases at
    head dims 64 and 128 on every head and the one-row tail against the
    CPU call.  Phases 9f and 10 replay what the training and ring paths
-   launched on the same route.
+   launched on the same route;
+17. B4-fp4 on ``csrc/flash_sm90.cu``'s FP4 mode and B5-fp8 with the ring's
+   B10-B5-fp8 forms on ``csrc/attention_q8_sm90.cu``'s e4m3 PV (slice 13),
+   each against its plain version within ``KERNEL_BAR``: phase 11b's
+   B4-fp4 launches (CogVideoX1.5 on heads 0-1, HunyuanVideo on the sampled
+   row blocks of head 0; the plain version walks query-row chunks), causal
+   at head dims 64, 128 and 256 (8,192 tokens), then its edge cases on
+   every head (``kv_len < Sk``, a ragged Sq, a block whose first warpgroup
+   walks fully masked tiles, GQA with NHD strides; how many outputs differ
+   is printed); B5-fp8 through ``sageattn_qk_int8_pv_fp8`` at CogVideoX1.5
+   and Llama-70B GQA causal, each counted on its own (one launch, one V^T
+   copy), held to flash and, on the first and last heads, to the plain
+   version, with its time, bound, the V^T copy's time and ``sageattn``'s
+   (int8 PV) beside it; the fp8 ring over 4 virtual ranks at CogVideoX1.5
+   (padded chunks) and Llama-3.1-8B 65,536 causal (hidden, diagonal and
+   visible pairs) against single-device ``sageattn_qk_int8_pv_fp8`` and
+   flash, every kind of launch against the plain version; and phase 15's
+   edge cases in B5-fp8's forms (a chunk with 40 real rows and one with
+   none among them).  Its rows replace phases 4's, 10's and 11's of the
+   same keys.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -317,17 +337,19 @@ def main() -> int:
     # training needs autograd: phase 9 runs outside inference mode
     kernels += timed_phase("phase 9", run_training, torch, st, totals)
     kernels += timed_phase("phase 10", run_ring, torch, st, totals)
+    fp4_recs = {}   # phase 11b's B4-fp4 launches, held to their plain version in phase 17
     with torch.inference_mode():
-        kernels += timed_phase("phase 11", run_slice7, torch, st, totals)
+        kernels += timed_phase("phase 11", run_slice7, torch, st, totals, fp4_recs)
         kernels += timed_phase("phase 12", run_flash, torch, st, totals)
     # the library's backward, timed beside C1/C2, needs tensors made outside
     # inference mode
     with torch.no_grad():
         kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
         kernels += timed_phase("phase 16", run_bwd_q8_sm90, torch, st, totals)
-    with torch.inference_mode():   # phases 14's and 15's rows replace the earlier ones of their keys
+    with torch.inference_mode():   # phases 14, 15 and 17's rows replace the earlier ones of their keys
         new = timed_phase("phase 14", run_fwd_sm90, torch, st, totals)
         new += timed_phase("phase 15", run_q8_sm90, torch, st, totals)
+        new += timed_phase("phase 17", run_fp4_fp8_sm90, torch, st, totals, fp4_recs)
     kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
     for e in kernels:   # launches over every counted path
         e["launches"] = totals.get(e["name"], 0)
@@ -1141,7 +1163,7 @@ def fwd_source(cfg, q):
         return SRC_ATTN_SM90
     if tatt.q8_sm90_route(cfg, Sq, D, q.dtype):
         return SRC_Q8_SM90
-    return SRC_LOWBIT if cfg.p_sim_fp4 else SRC_ATTN
+    return SRC_ATTN
 
 
 def ext_kernel_checks(torch, seen, totals):
@@ -2595,6 +2617,22 @@ class ring_recorder:
         return sum(s.elapsed_time(e) for s, e in self.widen)
 
 
+class vt_copies(list):
+    """While entered, keeps the shape of every V^T copy
+    ``ops.attention.transpose_v_codes`` makes: one per B5-fp8 launch on
+    ``attention_q8_sm90.cu``."""
+
+    def __enter__(self):
+        from sageattention_tpu_torch.ops import attention as tatt
+        self.real = real = tatt.transpose_v_codes
+        tatt.transpose_v_codes = lambda v: self.append(tuple(v.shape)) or real(v)
+        return self
+
+    def __exit__(self, *exc):
+        from sageattention_tpu_torch.ops import attention as tatt
+        tatt.transpose_v_codes = self.real
+
+
 def virtual_ring(torch, q, k, v, n, return_lse=False, split=None, **kw):
     """``ring_sageattn`` over ``n`` virtual ranks in one process: the ring's
     per-rank phase functions, with its collectives (the K-mean sum, the cap
@@ -2705,9 +2743,13 @@ def ring_phase(torch, st, totals, rec):
               "bf16": "B10-B-pvbf16-kvtrue"}
     for n, pv in runs:
         name = f"10a ring CogVideoX1.5 {tuple(q.shape)} on {n} ranks, pv {pv}"
-        with rec:
+        with rec, vt_copies() as copies:
             (out, safe), _ = counted_path(torch, name, [expect[pv]], {}, totals,
                                           lambda: virtual_ring(torch, q, k, v, n, pv_dtype=pv))
+        if pv == "fp8":   # every fp8 ring step on attention_q8_sm90.cu makes one V^T copy
+            launched = read_counts()[expect[pv]]
+            check(len(copies) == launched, f"{name}: {len(copies)} V^T copies for {launched} "
+                                           f"{expect[pv]} launches")
         check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
               f"{name}: finite output {tuple(out.shape)}")
         d_single = calc_diff(out, single[pv])
@@ -2715,6 +2757,10 @@ def ring_phase(torch, st, totals, rec):
             check(d_single < RING_SINGLE_BAR,
                   f"{name}: vs single-device sageattn_qk_int8_pv_bf16 calc_diff {d_single:.3e} "
                   f"< {RING_SINGLE_BAR}")
+        elif pv == "fp8":
+            check(d_single < FP8_BAR,
+                  f"{name}: vs single-device sageattn_qk_int8_pv_fp8 calc_diff {d_single:.3e} "
+                  f"< {FP8_BAR}")
         check_vs(f"{name} vs flash (single-device sageattn: calc_diff {d_single:.3e})", out,
                  flash, "fp8" if pv == "fp8" else "int8")
     del flash, single
@@ -3065,7 +3111,7 @@ def run_ring(torch, st, totals):
 
 # ----------------------------------------- slice 7: the last TPU kernels ----
 
-SRC_LOWBIT = "sageattention_tpu_torch/csrc/attention_lowbit.cu"
+SRC_LOWBIT = "sageattention_tpu_torch/csrc/flash_sm90.cu"   # B4-fp4: its FP4 mode
 # HunyuanVideo's published transformer (hidden 3072, 24 heads, patch (1, 2, 2),
 # 16 latent channels, text_states_dim 4096, text_len 256) at 720 x 1280 and
 # 129 frames: 33 x 90 x 160 latents, S = 256 + 33 * 45 * 80 = 119,056 tokens;
@@ -3316,6 +3362,8 @@ def fp4_phase(torch, st, totals):
         out, recs[label] = counted_path(torch, what, ("B4-fp4",), {}, totals,
                                         lambda: st.sageattn3_blackwell(q, k, v))
         exact_counts(what, read_counts(), {"B4-fp4": 1, "B4": 0})
+        args = recs[label]["B4-fp4"][0]
+        check(fwd_source(args[3], args[0]) == SRC_LOWBIT, f"{what}: B4-fp4 ran on {SRC_LOWBIT}")
         check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
               f"{what}: finite output {tuple(out.shape)}")
         d = calc_diff(out, st.flash_attention(q, k, v))
@@ -3365,8 +3413,8 @@ def fp4_kernel_entry(torch, recs, launches):
     """B4-fp4 against its plain version: two heads at CogVideoX1.5 in full
     (the plain version walks query-row chunks), the sampled row blocks of
     one head at the HunyuanVideo shape (the launch's other rows are
-    independent of them), and causal at head dims 64 and 128 in full; its
-    time at both main-path shapes."""
+    independent of them), and causal at head dims 64, 128 and 256 in full;
+    its time at both main-path shapes."""
     from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
     from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
     cases, errs = [], []
@@ -3376,19 +3424,21 @@ def fp4_kernel_entry(torch, recs, launches):
     idx = torch.tensor(row_blocks(hargs[0].shape[2]), device="cuda")
     sub = (hargs[0][:, :1, idx], hargs[1][:, :1], hargs[2][:, :1])
     cases.append((f"HunyuanVideo, head 0, {len(idx)} sampled rows", sub + tuple(hargs[3:])))
-    for D in (64, 128):
+    for D in (64, 128, 256):
         q, k, v = realistic_qkv(torch, 1, 4, 4, FP4_CAUSAL_S, D, SEED + 53 + D)
         cfg = dataclasses.replace(args[3], causal=True, kv_len=FP4_CAUSAL_S, sm_scale=D ** -0.5)
         cases.append((f"causal (1,4,{FP4_CAUSAL_S},{D})", (q, k, v, cfg) + tuple(args[4:])))
     plain_ms = []
     for what, a in cases:
+        check(fwd_source(a[3], a[0]) == SRC_LOWBIT, f"B4-fp4, {what}: runs on {SRC_LOWBIT}")
         x = attention_kernel(*a, **kw)
         y, ms = timed_call(torch, lambda: attention_plain(*a, **kw))
         plain_ms.append(ms)
         d = calc_diff(x[0], y[0])
         err = float((x[0].float() - y[0].float()).abs().max())
         check(d < KERNEL_BAR, f"B4-fp4 vs plain, {what}: calc_diff {d:.3e} < {KERNEL_BAR}, "
-                              f"max_abs {err:.3e}")
+                              f"max_abs {err:.3e}, {int((x[0] != y[0]).sum())} of "
+                              f"{x[0].numel()} outputs differ")
         errs.append(err)
     timed = {}
     for label, timer in (("CogVideoX1.5", lambda fn: time_fn(fn, warmup=2, reps=10) * 1e3),
@@ -3404,6 +3454,150 @@ def fp4_kernel_entry(torch, recs, launches):
             "launches": launches, "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms[0],
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "shape": f"{tuple(args[0].shape)}; plain on 2 heads"}
+
+
+def fp4_edges(torch):
+    """B4-fp4 on ``flash_sm90.cu`` at head dims 64, 128 and 256, each
+    against its plain version on every head: ``kv_len < Sk``, a ragged Sq
+    with a one-row tail block, a causal block whose first warpgroup walks
+    kv tiles its rows see none of (an all-masked tile's e2m1 scale takes
+    the 1e-30 floor and its P is 0), GQA 4/1 in a batch of two with NHD
+    strides.  A P that differs from the plain version's by an ulp (the
+    kernel's exp2 and FMA) may round to the next e2m1 value where it lies
+    at a midpoint: each case prints how many outputs differ and the lse's
+    largest move.  Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops.attention import (AttnConfig, attention_kernel,
+                                                       attention_plain)
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 165)
+    nhd_view = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+    errs = []
+    for D in (64, 128, 256):
+        BM = 64 * (3 if D == 64 else 2)
+        # (label, B, Hq, Hk, Sq, Sk, causal, kv_len)
+        cases = [("kv_len 777 of Sk 1000 (Sq 700)", 1, 4, 2, 700, 1000, False, 777),
+                 (f"ragged Sq {BM + 1}, one-row tail block (Sk 333)", 1, 4, 4, BM + 1, 333,
+                  False, 0),
+                 ("causal (320), the first warpgroup's fully masked tiles", 1, 2, 2, 320, 320,
+                  True, 0),
+                 ("GQA 4/1, B = 2, NHD strides", 2, 4, 1, 250, 250, False, 0)]
+        for label, B, Hq, Hk, Sq, Sk, causal, kv_len in cases:
+            q, k, v = _edge_qkv(torch, g, B, Hq, Hk, Sq, Sk, D)
+            if B == 2:
+                q, k, v = (nhd_view(x) for x in (q, k, v))
+            cfg = AttnConfig(causal=causal, quantized=False, p_sim_fp4=True, kv_len=kv_len,
+                             sm_scale=D ** -0.5, emit_lse=True)
+            a = attention_kernel(q, k, v, cfg)
+            b = attention_plain(q, k, v, cfg)
+            d = calc_diff(a[0], b[0])
+            e = float((a[0].float() - b[0].float()).abs().max())
+            dl = float((a[1] - b[1]).abs().max())
+            errs.append(e)
+            check(d < KERNEL_BAR and fwd_source(cfg, q) == SRC_LOWBIT,
+                  f"B4-fp4 edge {label}, D={D} vs plain on every head: calc_diff {d:.3e} < "
+                  f"{KERNEL_BAR}, max_abs {e:.3e}, {int((a[0] != b[0]).sum())} of "
+                  f"{a[0].numel()} outputs differ, lse moves {dl:.2e}, on {SRC_LOWBIT}")
+    return max(errs)
+
+
+# B5-fp8's shapes on the main paths (B6's): B, Hq, Hk, S, D, causal
+B5_FP8_SHAPES = {"CogVideoX1.5": COG_SHAPE + (False,),
+                 "Llama-70B GQA": (1, 64, 8, 16384, 128, True)}
+
+
+def b5_fp8_phase(torch, st, totals):
+    """B5-fp8 through ``sageattn_qk_int8_pv_fp8`` (fine K scales, e4m3 P
+    and V: the reference's H100 mode) at each of ``B5_FP8_SHAPES``, each
+    call counted on its own (one launch on attention_q8_sm90.cu, one V^T
+    copy) and held to flash, its launch on all heads against the plain
+    version on the first and last heads, with its time and bound; the V^T
+    copy's time; and ``sageattn`` (int8 PV, the default) against it, the
+    comparison ``dispatch.py`` waits for.  Returns the JSON entry of
+    CogVideoX1.5's launch."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.utils.testing import time_fn
+    entry = None
+    for i, (label, (B, H, Hk, S, D, causal)) in enumerate(B5_FP8_SHAPES.items()):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 170 + i)
+        flash = st.flash_attention(q, k, v, is_causal=causal)
+        what = f"{label} ({B},{H}/{Hk},{S},{D}) causal={causal} sageattn_qk_int8_pv_fp8"
+        with vt_copies() as copies:
+            out, rec = counted_path(torch, what, ("B5-fp8",), {}, totals,
+                                    lambda: st.sageattn_qk_int8_pv_fp8(q, k, v, is_causal=causal))
+        exact_counts(what, read_counts(), {"B5-fp8": 1})
+        check(len(copies) == 1, f"{what}: one V^T copy ({len(copies)})")
+        check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+              f"{what}: finite output {tuple(out.shape)}")
+        check_vs(f"{what} vs flash", out, flash, "fp8")
+        args, akw = rec["B5-fp8"]
+        check(fwd_source(args[3], args[0]) == SRC_Q8_SM90, f"{what}: B5-fp8 ran on {SRC_Q8_SM90}")
+        e = attn_kernel_entry(torch, "B5-fp8", args, akw, 0, label=f"B5-fp8 ({what})")
+        vt_ms = time_fn(lambda: tatt.transpose_v_codes(args[2]), warmup=3, reps=20) * 1e3
+        int8_ms = time_fn(lambda: st.sageattn(q, k, v, is_causal=causal), warmup=2, reps=10) * 1e3
+        fp8_ms = time_fn(lambda: st.sageattn_qk_int8_pv_fp8(q, k, v, is_causal=causal), warmup=2,
+                         reps=10) * 1e3
+        print(f"     {what}: V^T copy {vt_ms:.3f} ms; a call of sageattn (int8 PV) {int8_ms:.3f} "
+              f"ms, of sageattn_qk_int8_pv_fp8 {fp8_ms:.3f} ms", flush=True)
+        if label == "CogVideoX1.5":
+            entry = dict(e, name="B5-fp8")
+        del out, rec, args, akw, q, k, v, flash
+        torch.cuda.empty_cache()
+    return [entry]
+
+
+def b10_fp8_phase(torch, st, totals):
+    """The ring's fp8 PV over 4 virtual ranks at CogVideoX1.5 (padded
+    chunks: B10-B5-fp8-kvtrue) and at Llama-3.1-8B 65,536 causal (device
+    offsets: B10-B5-fp8-offsets, 6 hidden, 4 diagonal and 6 visible chunk
+    pairs), each counted on its own and held to single-device
+    ``sageattn_qk_int8_pv_fp8`` and to flash; then every kind of their
+    launches against the plain version on sampled heads.  Returns one JSON
+    entry per key, from its launch with the most work."""
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    rec = ring_recorder(torch)
+    runs = [("CogVideoX1.5", COG_SHAPE, False, "B10-B5-fp8-kvtrue"),
+            ("Llama-3.1-8B", LLAMA_LONG, True, "B10-B5-fp8-offsets")]
+    for i, (label, (B, H, Hk, S, D), causal, key) in enumerate(runs):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 180 + i)
+        what = f"17 ring {label} ({B},{H}/{Hk},{S},{D}) causal={causal}, pv fp8, on 4 ranks"
+        with rec:
+            (out, _), _ = counted_path(
+                torch, what, [key], {}, totals,
+                lambda: virtual_ring(torch, q, k, v, 4, is_causal=causal, pv_dtype="fp8"))
+        check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+              f"{what}: finite output {tuple(out.shape)}")
+        d = calc_diff(out, st.sageattn_qk_int8_pv_fp8(q, k, v, is_causal=causal))
+        check(d < FP8_BAR, f"{what}: vs single-device sageattn_qk_int8_pv_fp8 calc_diff {d:.3e} "
+                           f"< {FP8_BAR}")
+        check_vs(f"{what} vs flash", out, st.flash_attention(q, k, v, is_causal=causal), "fp8")
+        del q, k, v, out
+        torch.cuda.empty_cache()
+    calls = {n: c for n, c in rec.calls.items() if n.startswith("B10-B5-fp8-")}
+    for name, kinds in calls.items():
+        args = kinds[0][0]
+        check(fwd_source(args[3], args[0]) == SRC_Q8_SM90, f"{name} ran on {SRC_Q8_SM90}")
+    entries = b10_checks(torch, calls, totals)
+    rec.calls.clear()
+    torch.cuda.empty_cache()
+    return entries
+
+
+def run_fp4_fp8_sm90(torch, st, totals, fp4_recs):
+    """Phase 17: B4-fp4 on ``csrc/flash_sm90.cu``'s FP4 mode (phase 11b's
+    launches, causal at head dims 64, 128 and 256, the edge cases) and
+    B5-fp8 with the ring's B10-B5-fp8 forms on ``csrc/attention_q8_sm90.cu``
+    (its e4m3 PV), each against its plain version.  Returns their JSON
+    entries, which replace phases 4's, 10's and 11's rows of the same
+    keys."""
+    fp4 = fp4_kernel_entry(torch, fp4_recs, totals.get("B4-fp4", 0))
+    fp4_recs.clear()
+    torch.cuda.empty_cache()
+    fp4["max_abs_err"] = max(fp4["max_abs_err"], fp4_edges(torch))
+    entries = b5_fp8_phase(torch, st, totals) + b10_fp8_phase(torch, st, totals)
+    edge_err = q8_sm90_edges(torch, ("B5-fp8",))
+    for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], edge_err)
+    return [fp4] + entries
 
 
 def prep2_entries(torch, q, k, v, totals):
@@ -3446,11 +3640,12 @@ def prep2_entries(torch, q, k, v, totals):
     return out
 
 
-def run_slice7(torch, st, totals):
+def run_slice7(torch, st, totals, fp4_recs):
     """Phase 11, the paths of slice 7 (each counted on its own): 11a the
     long sequences whose K/V prep takes the two-pass kernels (A3, A4), 11b
-    SageAttention3's FP4 simulation (B4-fp4); then A3, A4 and B4-fp4
-    against their plain versions."""
+    SageAttention3's FP4 simulation (B4-fp4, whose launches' inputs go to
+    ``fp4_recs`` for phase 17); then A3 and A4 against their plain
+    versions."""
     t0 = time.time()
     q, k, v = hunyuan_phase(torch, st, totals)
     entries = prep2_entries(torch, q, k, v, totals)
@@ -3460,9 +3655,7 @@ def run_slice7(torch, st, totals):
     torch.cuda.empty_cache()
     llama_128k_phase(torch, st, totals)
     torch.cuda.empty_cache()
-    recs = fp4_phase(torch, st, totals)
-    entries.append(fp4_kernel_entry(torch, recs, totals.get("B4-fp4", 0)))
-    del recs
+    fp4_recs.update(fp4_phase(torch, st, totals))
     torch.cuda.empty_cache()
     print(f"     phase 11: {time.time() - t0:.1f} s", flush=True)
     return entries
@@ -4155,9 +4348,10 @@ def b10_b6_phase(torch, st, totals):
     return entries
 
 
-def q8_sm90_edges(torch):
-    """B6 and B10-B6 on their Hopper kernel at head dims 64 and 128, static
-    and online, each against its plain version on every head: a hidden
+def q8_sm90_edges(torch, names=("B6-static", "B6-online")):
+    """B6 and B10-B6 (``names``: B5-fp8 and its B10 forms in phase 17) on
+    their Hopper kernel at head dims 64 and 128, static and online, each
+    against its plain version on every head: a hidden
     chunk pair (no kv tile), a diagonal and a partly hidden pair, a padded
     chunk with fewer than 64 real rows and a one-row tail block, a chunk of
     padding only, an unaligned Sk with per-column K scales, GQA 8/2 with
@@ -4195,7 +4389,7 @@ def q8_sm90_edges(torch):
             rows = torch.arange(Sq, device="cuda")
             live = (torch.clamp(rows + shift + 1, max=kv_eff) > 0) if causal else (
                 torch.full((Sq,), kv_eff > 0, device="cuda"))
-            for name in ("B6-static", "B6-online"):
+            for name in names:
                 ring = offs is not None or kv_true is not None
                 cfg = dataclasses.replace(
                     attn_cfg(torch, name, D, causal), fold_k_scale=fold, kv_len=kv_len,

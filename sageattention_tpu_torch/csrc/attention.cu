@@ -1,8 +1,8 @@
 // SageAttention forward with Q quantized inside the kernel (B1-B3, B5 with
 // a fused Q).  The kernel itself and its design notes are in attention.cuh;
 // attention_q8.cu instantiates it for a pre-quantized Q.  The unmasked bf16
-// flash baseline (B4) is flash_sm90.cu's; its masked, windowed and FP4
-// forms are built by attention_ext.cu and attention_lowbit.cu.
+// flash baseline (B4) and its FP4 form are flash_sm90.cu's; its masked and
+// windowed forms are built by attention_ext.cu.
 #include "attention.cuh"
 
 using namespace sage_attn;

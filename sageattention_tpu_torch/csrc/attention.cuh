@@ -65,8 +65,9 @@
 // into the rescaled running sum (the Pallas kernel adds a per-tile dot; the
 // two differ in f32 rounding only).  The staging and PV loops keep one
 // order for every configuration, with K and V loads in flight together.
-// A native e4m3 wgmma PV (V transposed in memory, two-level accumulation)
-// is later work.  At D = 256 (head dims 129-256, padded) the tiles outgrow
+// The native e4m3 wgmma PV (V transposed in memory, two-level
+// accumulation) is attention_q8_sm90.cu's, for B5-fp8 and its ring forms
+// at D = 64 and 128 with a bf16 output.  At D = 256 (head dims 129-256, padded) the tiles outgrow
 // the 48 KB of static shared memory and the 64 x 256 f32 accumulator takes
 // 128 registers a thread: that instantiation keeps its tiles in dynamic
 // shared memory, with the Q tile in a region of its own whose fragments are
@@ -192,25 +193,11 @@ __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// B4-fp4 (FP4, SageAttention3's simulation in ops/lowbit.py; Pallas's
-// `_round_e2m1_tile`): under the online softmax of the flash base, each
-// tile's P rounds onto the e2m1 grid {0, .5, 1, 1.5, 2, 3, 4, 6} at scale
-// (its row max over the tile, exp2(tile max - m)) / 6, a tie rounding down,
-// and l sums the rounded P.  Only attention_lowbit.cu instantiates it.
-__device__ __forceinline__ float round_e2m1(float p, float scale) {
-  const float x = __fdiv_rn(p, scale);
-  const float q = x > 5.f ? 6.f : x > 3.5f ? 4.f : x > 2.5f ? 3.f : x > 1.75f ? 2.f
-                : x > 1.25f ? 1.5f : x > 0.75f ? 1.f : x > 0.25f ? 0.5f : 0.f;
-  return __fmul_rn(q, scale);
-}
-
 // T: the Q operand in global memory (bf16 / f32 float Q, int8 codes when
 // pre-quantized); O: the output.
-// The kernel body; attn_fwd_kernel (plain), attn_fwd_ext_kernel (EXT),
-// attn_fwd_ring_kernel (DYN) and attn_fwd_fp4_kernel (FP4) below are its
-// entry points.
-template <int QM, bool STATIC, int PV, int D, bool EXT, bool DYN, typename T, typename O,
-          bool FP4 = false>
+// The kernel body; attn_fwd_kernel (plain), attn_fwd_ext_kernel (EXT) and
+// attn_fwd_ring_kernel (DYN) below are its entry points.
+template <int QM, bool STATIC, int PV, int D, bool EXT, bool DYN, typename T, typename O>
 __device__ __forceinline__ void attn_fwd_body(const Params p) {
   constexpr bool KI8 = (QM == Q_INT8);          // K stays int8 in smem
   constexpr bool QPRE = std::is_same<T, int8_t>::value;
@@ -601,11 +588,6 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
       cB = sage::warp_max(cB, 4);
       const float nA = fmaxf(fmaxf(mA, cA), M_CLAMP), nB = fmaxf(fmaxf(mB, cB), M_CLAMP);
       const float aA = exp2f(__fsub_rn(mA, nA)), aB = exp2f(__fsub_rn(mB, nB));
-      float fsA = 0.f, fsB = 0.f;  // FP4: the rows' e2m1 scales
-      if constexpr (FP4) {
-        fsA = __fmul_rn(fmaxf(exp2f(__fsub_rn(cA, nA)), 1e-30f), (float)(1.0 / 6.0));
-        fsB = __fmul_rn(fmaxf(exp2f(__fsub_rn(cB, nB)), 1e-30f), (float)(1.0 / 6.0));
-      }
       mA = nA;
       mB = nB;
       float pA = 0.f, pB = 0.f;
@@ -619,7 +601,6 @@ __device__ __forceinline__ void attn_fwd_body(const Params p) {
           float pv = exp2f(e);
           if (PV == PV_I8P) pv = rintf(pv);                              // a code <= 127
           if (PV == PV_F8P) pv = static_cast<float>(__nv_fp8_e4m3(pv));  // e4m3, RNE
-          if constexpr (FP4) pv = round_e2m1(pv, i < 2 ? fsA : fsB);
           s[n][i] = pv;
         }
         pA += s[n][0] + s[n][1];
@@ -727,12 +708,6 @@ __global__ void __launch_bounds__(kThreads) attn_fwd_ring_kernel(Params p) {
   attn_fwd_body<QM, STATIC, PV, D, false, true, T, O>(p);
 }
 
-// SageAttention3's simulation (B4-fp4): the flash body rounding P to e2m1.
-template <int QM, bool STATIC, int PV, int D, typename T, typename O>
-__global__ void __launch_bounds__(kThreads) attn_fwd_fp4_kernel(Params p) {
-  attn_fwd_body<QM, STATIC, PV, D, false, false, T, O, true>(p);
-}
-
 // The EXT entry keeps the plain one's occupancy (3 blocks per SM at D = 128,
 // 4 at D = 64): its extra state would otherwise push some instantiations
 // past the register count that allows it.  The plain entry keeps the bare
@@ -745,9 +720,9 @@ __global__ void __launch_bounds__(kThreads, (D == 64 ? 4 : D == 128 ? 3 : 1))
 }
 
 // Runs the kernel for (qmode, static, pv, D) with Q operand T and output O,
-// in the plain (EXT, DYN and FP4 false), the B7-B9 (EXT), the ring's (DYN)
-// or the e2m1 P (FP4) instantiation.
-template <typename T, typename O, bool EXT, bool DYN = false, bool FP4 = false>
+// in the plain (EXT and DYN false), the B7-B9 (EXT) or the ring's (DYN)
+// instantiation.
+template <typename T, typename O, bool EXT, bool DYN = false>
 struct Launcher {
   const Params& p;
   dim3 grid;
@@ -763,7 +738,6 @@ struct Launcher {
       auto kern = [] {   // only the entry this instantiation launches
         if constexpr (EXT) return attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O>;
         else if constexpr (DYN) return attn_fwd_ring_kernel<QM, STATIC, PV, D, T, O>;
-        else if constexpr (FP4) return attn_fwd_fp4_kernel<QM, STATIC, PV, D, T, O>;
         else return attn_fwd_kernel<QM, STATIC, PV, D, T, O>;
       }();
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -772,8 +746,6 @@ struct Launcher {
       attn_fwd_ext_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
     } else if constexpr (DYN) {
       attn_fwd_ring_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
-    } else if constexpr (FP4) {
-      attn_fwd_fp4_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
     } else {
       attn_fwd_kernel<QM, STATIC, PV, D, T, O><<<grid, kThreads, 0, st>>>(p);
     }

@@ -1,4 +1,5 @@
-// B6, the forward on a pre-quantized Q, and the ring's B10 forms of it,
+// B6, the forward on a pre-quantized Q, B5-fp8 (the same with an e4m3 P
+// and e4m3 V: the reference's H100 mode) and the ring's B10 forms of both,
 // redesigned for Hopper on attention_sm90.cu's skeleton: TMA loads
 // completing on mbarriers (Q's int8 codes included), a ring of K/V stages
 // refilled by the last warp done with one, int8 wgmma for S = QK^T, the
@@ -9,10 +10,11 @@
 // attention.py:251, launched by `attention_call`) in B6's configuration (a
 // pre-quantized Q: int8 codes with per-row f32 scales; the K scale folded
 // into those scales or given per column; int8 V under a bf16 P), static
-// and online, and in the ring's B10 forms of it (parallel/ring.py:234-248:
+// and online, in B5-fp8's (its e4m3 branch, attention.py:569-585, epilogue
+// :667-677), and in the ring's B10 forms of both (parallel/ring.py:234-248:
 // device causal offsets and a device true length), at head dims 64 and 128
-// with a bf16 output; D = 256, an f32 output and every other configuration
-// stay on attention.cuh's body.  What it computes, as the plain version
+// with a bf16 output; D = 256, an f32 output, B5-fp8-fusedq and every
+// other configuration stay on attention.cuh's body.  What it computes, as the plain version
 // (ops/attention.py `attention_plain`, the pre-quantized branch of
 // `_prepare_q`, `_dynamic`):
 //   s = (float(q8 . k8) * q_scale[row]) * k_scale[col] (the second factor
@@ -26,11 +28,14 @@
 //   sums the unrounded p; O += bf16(p) V with f32 sums over the int8 V codes;
 //   out = O * (1 / l) * v_scale[c] + v_mean[c] in bf16 and the base-2 lse,
 //   C + log2(l) (static) or m + log2(l) (online).  No lmin: B6's safety
-//   check is the predictive one, made before the launch.
+//   check is the predictive one, made before the launch.  B5-fp8: the
+//   online softmax with P = e4m3(exp2((s - m') + log2 448)) and l summing
+//   those rounded P, O = O * alpha + (P V over the tile, in f32) with V the
+//   e4m3 codes, and the lse less log2 448.
 //
 // What bounds it on the H100: the tensor cores (2 S^2 D int8 operations at
-// 1979 TOP/s and 2 S^2 D bf16 ones at 989 TFLOP/s) and, at D = 64, the
-// exp2 of the softmax on the SFUs.  The design, attention_sm90.cu's with
+// 1979 TOP/s and 2 S^2 D bf16 ones at 989 TFLOP/s; B5-fp8's PV at the fp8
+// rate) and, at D = 64, the exp2 of the softmax on the SFUs.  The design, attention_sm90.cu's with
 // these changes:
 //   Q         the int8 codes by one TMA box of D bytes x BM rows, swizzled
 //             as K's (128-byte at D = 128, 64-byte at D = 64): the layout
@@ -65,6 +70,29 @@
 //             boxes, an MN-major B operand of the PV wgmma.
 //   block     three warpgroups at D = 64 (192 rows), two at D = 128 (128
 //             rows), no producer warp; 4 / 3 stages (static) or 4 (online).
+//   B5-fp8    the S side and the online softmax as B6's, on 64-column kv
+//             tiles (the plain version's, whose maxima the e4m3 P is
+//             rounded against).  The PV product is an e4m3 wgmma
+//             (m64nDk32, f32 sums): P from registers, four codes a
+//             register, converted from f32 in pairs (cvt.rn.satfinite
+//             .e4m3x2); V the B operand, which 8-bit wgmma takes K-major
+//             only, so the wrapper writes V^T [B, Hk, D, Sk padded to 16]
+//             once per call (per ring step for B10) with each 16 kv rows in
+//             the order of the P fragments' k (`transpose_v_codes`); one
+//             TMA box of 64 kv bytes x D rows a stage, 64-byte swizzled.
+//             Each tile's product lands in a fresh f32 accumulator that is
+//             then added into O (two-level accumulation: the tensor cores
+//             keep fewer mantissa bits of an fp8 sum than f32, as the
+//             reference does in qk_int_sv_f8_cuda_sm90.cu), which costs D/2
+//             registers a thread (152 / 216 a thread at D = 64 / 128, no
+//             spill).  The softmax packs the codes once, into the S
+//             registers, and sums l from the packed bytes' bits (a code's
+//             bits shifted into an f32 are its value times 2^-120, exact);
+//             after the previous product's wait they move into the A
+//             fragments through an XOR with a zero the compiler cannot
+//             fold: with a plain copy ptxas gave the fragments and the
+//             softmax's words the same registers and serialized every
+//             wgmma.
 #include <stdio.h>
 
 #include "sm90.cuh"
@@ -74,18 +102,24 @@ namespace q8sm90 {
 using namespace sm90;
 
 constexpr float M_CLAMP = -1e20f;  // floor of the running max
+constexpr float FP8_OFFSET_LOG2 = 8.807354922057604f;  // log2(448): e4m3 P fills its range
 
-template <int D, bool ONLINE>
+// The softmax and PV forms: B6-static, B6-online (int8 V widened to bf16
+// under a bf16 P) and B5-fp8 (the online softmax with e4m3 P and V).
+enum Mode { STATIC = 0, ONLINE = 1, FP8 = 2 };
+
+template <int D, int MODE>
 struct Cfg {
   static constexpr int NWG = D == 64 ? 3 : 2;  // warpgroups, 64 query rows each
   static constexpr int BM = 64 * NWG;          // query rows per block
   static constexpr int THREADS = 128 * NWG;
-  static constexpr int BN = ONLINE ? 64 : 128; // kv rows per tile
-  static constexpr int STAGES = ONLINE || D == 64 ? 4 : 3;
+  static constexpr int BN = MODE == STATIC ? 128 : 64;  // kv rows per tile
+  static constexpr int STAGES = MODE != STATIC || D == 64 ? 4 : 3;
   static constexpr int CH = D / 64;            // 128-byte bf16 column boxes of a V row
   static constexpr int Q_BYTES = BM * D;       // the int8 Q codes
   static constexpr int K_BYTES = BN * D;       // one int8 K stage
-  static constexpr int V_BYTES = BN * D * 2;   // one bf16 V stage
+  // one V stage: bf16 rows of D, or FP8 the e4m3 V^T, D rows of BN bytes
+  static constexpr int V_BYTES = MODE == FP8 ? D * BN : BN * D * 2;
   static constexpr int KS_BYTES = BN * 4;      // one stage's per-column K scales
   static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES + KS_BYTES) + 1024;
 };
@@ -229,6 +263,108 @@ __device__ __forceinline__ void softmax_online(int (&si)[BN / 2], const float* k
   for (int i = 0; i < BN / 2; ++i) si[i] = __float_as_int(sc[i]);
 }
 
+// Four f32 P as one register of e4m3 codes, byte i from x_i (round to
+// nearest even, saturating at 448).
+__device__ __forceinline__ uint32_t e4m3x4(float x0, float x1, float x2, float x3) {
+  uint32_t w;
+  asm("{\n.reg .b16 lo, hi;\n"
+      "cvt.rn.satfinite.e4m3x2.f32 lo, %2, %1;\n"
+      "cvt.rn.satfinite.e4m3x2.f32 hi, %4, %3;\n"
+      "mov.b32 %0, {lo, hi};\n}\n"
+      : "=r"(w)
+      : "f"(x0), "f"(x1), "f"(x2), "f"(x3));
+  return w;
+}
+
+// The sum of the four e4m3 values in w, times 2^-120: a code's bits but the
+// sign, shifted into an f32's exponent and top mantissa bits, are that value
+// times 2^-120 as an f32 (normal codes as normals, subnormal codes as f32
+// subnormals), and these sums are exact.
+__device__ __forceinline__ float e4m3x4_sum_2m120(uint32_t w) {
+  const float a = __uint_as_float((w << 20) & 0x07F00000u);
+  const float b = __uint_as_float((w << 12) & 0x07F00000u);
+  const float c = __uint_as_float((w << 4) & 0x07F00000u);
+  const float d = __uint_as_float((w >> 4) & 0x07F00000u);
+  return __fadd_rn(__fadd_rn(a, b), __fadd_rn(c, d));
+}
+
+// The A fragments of B5-fp8's e4m3 PV product from one tile's f32 P (in
+// the accumulator layout): fragment register 2 (h % 2) (+1 for row B) of
+// k32 step h / 2 holds four codes of columns 16 h .. 16 h + 15, this
+// thread's {2 q4, 2 q4 + 1, 8 + 2 q4, 9 + 2 q4} in that order; the
+// fragment's k order wants columns {4 q4 .. 4 q4 + 3}, so V^T holds each
+// 16 kv rows in the matching order (ops/attention.py `transpose_v_codes`)
+// and the product sums the same pairs.
+template <int BN>
+__device__ __forceinline__ void pack_e4m3(const float (&pv)[BN / 2], uint32_t (&pf)[BN / 32][4]) {
+#pragma unroll
+  for (int h = 0; h < BN / 16; ++h) {
+    const int j = 2 * h;
+    pf[h >> 1][2 * (h & 1)] = e4m3x4(pv[4 * j], pv[4 * j + 1], pv[4 * j + 4], pv[4 * j + 5]);
+    pf[h >> 1][2 * (h & 1) + 1] = e4m3x4(pv[4 * j + 2], pv[4 * j + 3], pv[4 * j + 6], pv[4 * j + 7]);
+  }
+}
+
+// B5-fp8's online softmax of one tile: the running maxima and alphas as
+// softmax_online's, P = exp2((s - m') + log2 448) rounded to e4m3 (round
+// to nearest even, saturating), packed into si[0 .. BN/4) as pack_e4m3
+// packs them, and l = alpha l + the sum of those codes' values, read back
+// from the packed bytes (exact in f32: at most 64 codes of 4 significant
+// bits from 2^-9 to 448).
+template <int BN, bool COLK>
+__device__ __forceinline__ void softmax_fp8(int (&si)[BN / 2], const float* ks, int k0,
+                                            int kv_len, int causal, int p0, int pA, int pB,
+                                            int q4, float qA, float qB, float& mA, float& mB,
+                                            float& lA, float& lB, float& aA, float& aB) {
+  float sc[BN / 2];
+  scores<BN, COLK>(si, sc, ks, k0, kv_len, causal, p0, pA, pB, q4, qA, qB);
+  float xA = -INFINITY, xB = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    xA = fmaxf(xA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    xB = fmaxf(xB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 1));
+  xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 2));
+  xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 1));
+  xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 2));
+  const float nA = fmaxf(fmaxf(mA, xA), M_CLAMP), nB = fmaxf(fmaxf(mB, xB), M_CLAMP);
+  aA = ex2(__fsub_rn(mA, nA));
+  aB = ex2(__fsub_rn(mB, nB));
+  mA = nA;
+  mB = nB;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    sc[4 * j] = ex2(__fadd_rn(__fsub_rn(sc[4 * j], nA), FP8_OFFSET_LOG2));
+    sc[4 * j + 1] = ex2(__fadd_rn(__fsub_rn(sc[4 * j + 1], nA), FP8_OFFSET_LOG2));
+    sc[4 * j + 2] = ex2(__fadd_rn(__fsub_rn(sc[4 * j + 2], nB), FP8_OFFSET_LOG2));
+    sc[4 * j + 3] = ex2(__fadd_rn(__fsub_rn(sc[4 * j + 3], nB), FP8_OFFSET_LOG2));
+  }
+  uint32_t w[BN / 32][4];
+  pack_e4m3<BN>(sc, w);
+  float sA = 0.f, sB = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BN / 32; ++kk) {
+    sA = __fadd_rn(sA, __fadd_rn(e4m3x4_sum_2m120(w[kk][0]), e4m3x4_sum_2m120(w[kk][2])));
+    sB = __fadd_rn(sB, __fadd_rn(e4m3x4_sum_2m120(w[kk][1]), e4m3x4_sum_2m120(w[kk][3])));
+#pragma unroll
+    for (int r = 0; r < 4; ++r) si[4 * kk + r] = (int)w[kk][r];
+  }
+  lA = __fadd_rn(__fmul_rn(aA, lA), __fmul_rn(sA, 0x1p120f));
+  lB = __fadd_rn(__fmul_rn(aB, lB), __fmul_rn(sB, 0x1p120f));
+}
+
+// B5-fp8's PV product of one tile into a fresh f32 accumulator t (the
+// caller adds it into O): BN/32 k32 steps, A (the e4m3 P) from registers,
+// B (the stage's e4m3 V^T, D rows of BN bytes, 64-byte swizzled) K-major.
+template <int D, int BN>
+__device__ __forceinline__ void pv_issue_f8(float (&t)[D / 2], const uint32_t (&pf)[BN / 32][4],
+                                            uint32_t vlo) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 32; ++kk) wgmma_f8(t, pf[kk], desc64(vlo + kk * 2), kk > 0);
+  wg_commit();
+}
+
 // P in bf16, packed straight into the A fragments of the PV product: k16
 // step kk takes the tile's columns 16 kk .. 16 kk + 15.
 template <int BN>
@@ -269,16 +405,17 @@ __device__ __forceinline__ int code_norm2(const uint8_t* q8, int r, int q4) {
   return n + __shfl_xor_sync(0xffffffffu, n, 2);
 }
 
-// Grid (ceil(Sq / BM), Hq, B), Cfg<D, ONLINE>::THREADS threads; tm_ks (the
+// Grid (ceil(Sq / BM), Hq, B), Cfg<D, MODE>::THREADS threads; tm_ks (the
 // per-column K scales) is read by the COLK instantiations only.
-template <int D, bool ONLINE, bool COLK>
-__global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
+template <int D, int MODE, bool COLK>
+__global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
     attn_q8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v,
                         const __grid_constant__ CUtensorMap tm_ks, const Params p) {
-  using C = Cfg<D, ONLINE>;
+  using C = Cfg<D, MODE>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES, NWG = C::NWG;
+  constexpr bool F8 = MODE == FP8;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // q full, then per stage: k full (with its K scales), v full
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
@@ -311,18 +448,22 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   // K (one box of D bytes, and COLK its BN scales) and V (CH boxes of 64
-  // bf16 columns) of tile kt into stage kt % STAGES, each completing on its
-  // full barrier
+  // bf16 columns, or F8 one box of V^T's BN bytes x D rows) of tile kt into
+  // stage kt % STAGES, each completing on its full barrier
   auto load_tile = [&](int kt) {
     const int s = kt % STAGES;
     mbar_expect_tx(bar_k + 8 * s, C::K_BYTES + (COLK ? C::KS_BYTES : 0));
     tma_load4(sK + s * C::K_BYTES, &tm_k, bar_k + 8 * s, 0, kt * BN, hk, b);
     if constexpr (COLK) tma_load4(sKS + s * C::KS_BYTES, &tm_ks, bar_k + 8 * s, kt * BN, 0, hk, b);
     mbar_expect_tx(bar_v + 8 * s, C::V_BYTES);
+    if constexpr (F8) {
+      tma_load4(sV + s * C::V_BYTES, &tm_v, bar_v + 8 * s, kt * BN, 0, hk, b);
+    } else {
 #pragma unroll
-    for (int c = 0; c < CH; ++c)
-      tma_load4(sV + s * C::V_BYTES + c * (BN * 128), &tm_v, bar_v + 8 * s, c * 64, kt * BN, hk,
-                b);
+      for (int c = 0; c < CH; ++c)
+        tma_load4(sV + s * C::V_BYTES + c * (BN * 128), &tm_v, bar_v + 8 * s, c * 64, kt * BN,
+                  hk, b);
+    }
   };
   if (tid == 0) {
     mbar_init(bar_q, 1);
@@ -350,7 +491,7 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
   const float qA = rA < p.Sq ? qsr[rA] : 1.f, qB = rB < p.Sq ? qsr[rB] : 1.f;
   mbar_wait(bar_q, 0);
   float cA = 0.f, cB = 0.f;  // static: the rows' caps
-  if constexpr (!ONLINE) {
+  if constexpr (MODE == STATIC) {
     const float kcap = __fmul_rn(p.kn_max[b * p.Hq + hq], (float)(1.0 + 1e-5));
     cA = __fmul_rn(__fmul_rn(qA, sqrtf((float)code_norm2<D>(gQ, lA, q4))), kcap);
     cB = __fmul_rn(__fmul_rn(qB, sqrtf((float)code_norm2<D>(gQ, lA + 8, q4))), kcap);
@@ -384,7 +525,10 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
   float mA = M_CLAMP, mB = M_CLAMP, lsA = 0.f, lsB = 0.f, aA = 1.f, aB = 1.f;
   auto softmax = [&](int (&si)[BN / 2], int kt, int s) {
     const float* ks = gKS + s * BN;
-    if constexpr (ONLINE)
+    if constexpr (F8)
+      softmax_fp8<BN, COLK>(si, ks, kt * BN, kv_len, p.causal, p0, pA, pB, q4, qA, qB, mA, mB,
+                            lsA, lsB, aA, aB);
+    else if constexpr (MODE == ONLINE)
       softmax_online<BN, COLK>(si, ks, kt * BN, kv_len, p.causal, p0, pA, pB, q4, qA, qB, mA,
                                mB, lsA, lsB, aA, aB);
     else
@@ -394,7 +538,40 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
-  uint32_t pf[BN / 16][4];  // P of the tile whose PV product is next
+  // F8: the PV product of one tile, added into O in f32 once it completes
+  // (two-level accumulation: the tensor cores keep fewer bits of an fp8 sum)
+  float t[F8 ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < (F8 ? D / 2 : 1); ++i) t[i] = 0.f;
+  uint32_t pf[F8 ? BN / 32 : BN / 16][4];  // P of the tile whose PV product is next
+  // P (kt) into the A fragments, once the product of P(kt - 1) has read them
+  // F8: the codes move into pf through an operation with a zero the
+  // compiler cannot fold (Sq >= 0): given a plain copy, ptxas let pf and
+  // the softmax's words share registers, and serialized every wgmma
+  const uint32_t zero = (uint32_t)p.Sq >> 31;
+  auto pack = [&](const int (&si)[BN / 2]) {
+    if constexpr (F8) {
+#pragma unroll
+      for (int i = 0; i < BN / 8; ++i) pf[i >> 2][i & 3] = (uint32_t)si[i] ^ zero;
+    } else {
+      pack_p<BN>(si, pf);
+    }
+  };
+  // O += P(kt - 1) V(kt - 1) on stage s, issued
+  auto pv = [&](int s) {
+    if constexpr (F8)
+      pv_issue_f8<D, BN>(t, pf, opaque(desc_lo(sV + s * C::V_BYTES, 16)));
+    else
+      pv_issue<D, BN>(o, pf, opaque(desc_lo(sV + s * C::V_BYTES, BN * 128)));
+  };
+  // F8: the completed tile's product into O
+  auto add_t = [&]() {
+    if constexpr (F8) {
+      reg_fence(t);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = __fadd_rn(o[i], t[i]);
+    }
+  };
 
   if (n_kt > 0) {  // tile 0: S, then its softmax
     int si[BN / 2];
@@ -406,11 +583,12 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
     wg_wait<0>();
     reg_fence(si);
     softmax(si, 0, 0);
-    pack_p<BN>(si, pf);
+    pack(si);
   }
   // tile kt: S(kt) and O += P(kt-1) V(kt-1) in flight together; the
-  // softmax of S(kt) runs under the PV product, then (online) O takes
-  // alpha(kt), and P(kt) is packed only once the product has read P(kt-1)
+  // softmax of S(kt) runs under the PV product, then (F8) the product is
+  // added into O, (online) O takes alpha(kt), and P(kt) is packed only once
+  // the product has read P(kt-1)
   for (int kt = 1; kt < n_kt; ++kt) {
     const int s = kt % STAGES, ps = (kt - 1) % STAGES;
     int si[BN / 2];
@@ -422,7 +600,7 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
     wg_fence();
     qk_issue<D, BN>(si, opaque(q_lo), opaque(desc_lo(sK + s * C::K_BYTES, 16)));
     wg_fence();
-    pv_issue<D, BN>(o, pf, opaque(desc_lo(sV + ps * C::V_BYTES, BN * 128)));
+    pv(ps);
     hand_over();
     wg_wait<1>();
     reg_fence(si);
@@ -432,8 +610,9 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
     reg_fence_u(pf);
     reg_fence(si);
     release(kt - 1);
-    if constexpr (ONLINE) rescale<D>(o, aA, aB);
-    pack_p<BN>(si, pf);
+    add_t();
+    if constexpr (MODE != STATIC) rescale<D>(o, aA, aB);
+    pack(si);
   }
   if (n_kt > 0) {  // the last PV product
     const int ls = (n_kt - 1) % STAGES;
@@ -442,11 +621,12 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
     reg_fence_u(pf);
     take_turn();
     wg_fence();
-    pv_issue<D, BN>(o, pf, opaque(desc_lo(sV + ls * C::V_BYTES, BN * 128)));
+    pv(ls);
     if (cw < NWG - 1) hand_over();  // the next warpgroups' last turns come after this one
     wg_wait<0>();
     reg_fence(o);
     release(n_kt - 1);
+    add_t();
   }
 
   // ------------- epilogue: O / l * v_scale + v_mean, the base-2 lse -------------
@@ -480,11 +660,13 @@ __global__ void __launch_bounds__(Cfg<D, ONLINE>::THREADS, 1)
       *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) = __floats2bfloat162_rn(v2, v3);
   }
   if (p.lse && q4 == 0) {
-    // static: the cap is the max the P were taken against
-    const float bA = ONLINE ? mA : cA, bB = ONLINE ? mB : cB;
+    // static: the cap is the max the P were taken against; F8: the exp
+    // offset rides in l and comes off here
+    const float bA = MODE == STATIC ? cA : mA, bB = MODE == STATIC ? cB : mB;
+    const float off = F8 ? FP8_OFFSET_LOG2 : 0.f;
     float* lse = p.lse + (long long)(b * p.Hq + hq) * p.Sq;
-    if (rA < p.Sq) lse[rA] = __fadd_rn(bA, log2f(fmaxf(lsA, 1e-37f)));
-    if (rB < p.Sq) lse[rB] = __fadd_rn(bB, log2f(fmaxf(lsB, 1e-37f)));
+    if (rA < p.Sq) lse[rA] = __fsub_rn(__fadd_rn(bA, log2f(fmaxf(lsA, 1e-37f))), off);
+    if (rB < p.Sq) lse[rB] = __fsub_rn(__fadd_rn(bB, log2f(fmaxf(lsB, 1e-37f))), off);
   }
 }
 
@@ -504,19 +686,28 @@ struct KScale {
   int cols;
 };
 
-template <int D, bool ONLINE, bool COLK>
+template <int D, int MODE, bool COLK>
 int launch(const void* q, const void* k, const void* v, const long long* st, const KScale& ks,
-           const Params& p, int B, cudaStream_t stream) {
-  using C = Cfg<D, ONLINE>;
+           const Params& p, int B, int Sk, cudaStream_t stream) {
+  using C = Cfg<D, MODE>;
   CUtensorMap mq, mk, mv, mks;
   const int kv_rows = p.kv_len > 0 ? p.kv_len : 1;  // n_kt = 0 loads nothing
   const CUtensorMapSwizzle swz = D == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
   if (!make_map_t(&mq, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, p.Sq, p.Hq, B, st[2], st[1], st[0],
                   D, C::BM, swz) ||
       !make_map_t(&mk, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, kv_rows, p.Hk, B, st[5], st[4],
-                  st[3], D, C::BN, swz) ||
-      !make_map(&mv, v, D, kv_rows, p.Hk, B, st[8], st[7], st[6], C::BN))
+                  st[3], D, C::BN, swz))
     return -2;
+  if constexpr (MODE == FP8) {
+    // V^T (Sk padded to 16, D, Hk, B) in boxes of BN kv bytes x D rows; the
+    // map spans every padded column (the kv order is permuted within each
+    // 16, so a column past kv_len may hold an earlier row), P masks them
+    if (!make_map_t(&mv, v, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, (Sk + 15) / 16 * 16, D, p.Hk, B,
+                    st[8], st[7], st[6], C::BN, D, CU_TENSOR_MAP_SWIZZLE_64B))
+      return -2;
+  } else if (!make_map(&mv, v, D, kv_rows, p.Hk, B, st[8], st[7], st[6], C::BN)) {
+    return -2;
+  }
   mks = mq;  // read only by the COLK instantiations
   if constexpr (COLK) {
     if (!make_map_t(&mks, ks.ptr, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, ks.cols, 1, p.Hk, B, 0,
@@ -524,21 +715,25 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
       return -2;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_q8_sm90_kernel<D, ONLINE, COLK>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      attn_q8_sm90_kernel<D, MODE, COLK>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.Sq + C::BM - 1) / C::BM, p.Hq, B);
-  attn_q8_sm90_kernel<D, ONLINE, COLK><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mks, p);
+  attn_q8_sm90_kernel<D, MODE, COLK><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mks, p);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-int launch_d(int online, const void* q, const void* k, const void* v, const long long* st,
-             const KScale& ks, const Params& p, int B, cudaStream_t s) {
-  if (online)
-    return ks.ptr ? launch<D, true, true>(q, k, v, st, ks, p, B, s)
-                  : launch<D, true, false>(q, k, v, st, ks, p, B, s);
-  return ks.ptr ? launch<D, false, true>(q, k, v, st, ks, p, B, s)
-                : launch<D, false, false>(q, k, v, st, ks, p, B, s);
+int launch_d(int mode, const void* q, const void* k, const void* v, const long long* st,
+             const KScale& ks, const Params& p, int B, int Sk, cudaStream_t s) {
+  const bool colk = ks.ptr != nullptr;
+  if (mode == FP8)
+    return colk ? launch<D, FP8, true>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, FP8, false>(q, k, v, st, ks, p, B, Sk, s);
+  if (mode == ONLINE)
+    return colk ? launch<D, ONLINE, true>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, ONLINE, false>(q, k, v, st, ks, p, B, Sk, s);
+  return colk ? launch<D, STATIC, true>(q, k, v, st, ks, p, B, Sk, s)
+              : launch<D, STATIC, false>(q, k, v, st, ks, p, B, Sk, s);
 }
 
 }  // namespace
@@ -546,7 +741,7 @@ int launch_d(int online, const void* q, const void* k, const void* v, const long
 extern "C" {
 
 const char* sage_attn_q8_sm90_error_string(int e) {
-  if (e == -1) return "unsupported B6 configuration (head_dim, GQA, strides or pointers)";
+  if (e == -1) return "unsupported B6 / B5-fp8 configuration (head_dim, GQA, strides or pointers)";
   if (e == -2) {
     static char msg[128];
     snprintf(msg, sizeof msg,
@@ -557,16 +752,19 @@ const char* sage_attn_q8_sm90_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// B6 and B10-B6 on int8 Q codes q [B, Hq, Sq, D] with per-row scales
-// q_scale [B*Hq*Sq], int8 K codes k [B, Hk, Sk, D], V codes widened to
-// bf16 v [B, Hk, Sk, D] and bf16 o [B, Hq, Sq, D], each with its own
-// element strides (batch, head, row; unit column stride, 16-byte aligned
-// base and outer strides); per-column K scales k_scale f32 [B, Hk, ks_cols]
-// with element strides (ks_sb, ks_sh), 16-byte aligned base and strides, or
-// null when folded into q_scale; kn_max [B*Hq] (static), v_scale and v_mean
-// (or null) [B*Hk*D] f32, lse [B*Hq*Sq] (or null) f32 output; offsets [2]
-// (q_start, kv_start) and kv_true [1], int32 on the device, or null.
-int sage_attn_fwd_q8_sm90(int D, int online, const void* q, const void* k, const void* v,
+// B6, B5-fp8 and their B10 forms on int8 Q codes q [B, Hq, Sq, D] with
+// per-row scales q_scale [B*Hq*Sq], int8 K codes k [B, Hk, Sk, D] and bf16
+// o [B, Hq, Sq, D]; `mode` 0 static, 1 online (B6: V codes widened to bf16
+// v [B, Hk, Sk, D]), 2 B5-fp8 (v the e4m3 V^T [B, Hk, D, Sk padded to 16]
+// of ops/attention.py `transpose_v_codes`, kv permuted within each 16);
+// each with its own element strides (batch, head, row; unit column stride,
+// 16-byte aligned base and outer strides); per-column K scales k_scale f32
+// [B, Hk, ks_cols] with element strides (ks_sb, ks_sh), 16-byte aligned
+// base and strides, or null when folded into q_scale; kn_max [B*Hq]
+// (static), v_scale and v_mean (or null) [B*Hk*D] f32, lse [B*Hq*Sq] (or
+// null) f32 output; offsets [2] (q_start, kv_start) and kv_true [1], int32
+// on the device, or null.
+int sage_attn_fwd_q8_sm90(int D, int mode, const void* q, const void* k, const void* v,
                           void* o, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                           long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                           long long v_ss, long long o_sb, long long o_sh, long long o_ss,
@@ -576,11 +774,13 @@ int sage_attn_fwd_q8_sm90(int D, int online, const void* q, const void* k, const
                           const int* offsets, const int* kv_true, int B, int Hq, int Hk, int Sq,
                           int Sk, int kv_len, int causal, void* stream) {
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  const int esize[9] = {1, 1, 1, 1, 1, 1, 2, 2, 2};
+  const int ve = mode == FP8 ? 1 : 2;
+  const int esize[9] = {1, 1, 1, 1, 1, 1, ve, ve, ve};
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * esize[i]) % 16) return -1;
-  if (B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk || !q_scale || !v_scale ||
-      (!online && !kn_max) || (offsets && !causal))
+  if (mode < STATIC || mode > FP8 || B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk ||
+      !q_scale || !v_scale || (mode == STATIC && !kn_max) || (offsets && !causal) ||
+      (mode == FP8 && (Sk < 1 || v_ss < (Sk + 15) / 16 * 16)))
     return -1;
   if (k_scale && (reinterpret_cast<uintptr_t>(k_scale) % 16 || ks_sb < 0 || ks_sh < 0 ||
                   ks_cols < 1 || (B > 1 && (ks_sb * 4) % 16) || (Hk > 1 && (ks_sh * 4) % 16)))
@@ -594,8 +794,8 @@ int sage_attn_fwd_q8_sm90(int D, int online, const void* q, const void* k, const
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.kv_len = kv_len; p.causal = causal;
   const KScale ks = {k_scale, ks_sb, ks_sh, ks_cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_d<64>(online, q, k, v, st, ks, p, B, s);
-  if (D == 128) return launch_d<128>(online, q, k, v, st, ks, p, B, s);
+  if (D == 64) return launch_d<64>(mode, q, k, v, st, ks, p, B, Sk, s);
+  if (D == 128) return launch_d<128>(mode, q, k, v, st, ks, p, B, Sk, s);
   return -1;
 }
 

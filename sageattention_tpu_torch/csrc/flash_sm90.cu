@@ -1,18 +1,20 @@
 // B4, the bf16 flash forward, redesigned for Hopper: TMA loads completing
 // on mbarriers, a ring of K/V stages, wgmma products, the softmax of one
 // tile under the PV product of the one before, and warpgroups taking turns
-// at the tensor cores.  Unmasked (B4) at head dims 64, 128 and 256, and
-// with an additive float bias (B4-float, the BIAS instantiations) at 64 and
-// 128.
+// at the tensor cores.  Unmasked (B4) at head dims 64, 128 and 256, with
+// an additive float bias (B4-float, the BIASED instantiations) at 64 and
+// 128, and with P rounded to e2m1 (B4-fp4, SageAttention3's simulation of
+// ops/lowbit.py; the FP4 instantiations) at 64, 128 and 256.
 //
 // Replaces the Pallas kernel `_attn_kernel` (sageattention_tpu/ops/
 // attention.py:251, launched by `attention_call` with quantized=False) in
-// the configurations with no mask, window, segments, FP4 rounding or ring
-// offsets, and no bias or only a float one; those stay on attention.cuh's
-// body (attention_ext.cu, attention_lowbit.cu), as does the bias at D =
-// 256, whose stages do not fit.  What it computes, as the plain version
-// (ops/attention.py `attention_plain` at `flash_kv_tile(D)` columns, 64
-// with a bias):
+// the configurations with no mask, window, segments or ring offsets, and
+// no bias, only a float one, or `p_sim_fp4` (its `_round_e2m1_tile`,
+// attention.py:235, applied at :547); the others stay on attention.cuh's
+// body (attention_ext.cu), as does the bias at D = 256, whose stages do
+// not fit.  What it computes, as the plain version (ops/attention.py
+// `attention_plain` at `flash_kv_tile(D)` columns, KV_TILE = 64 with a
+// bias or FP4):
 //   s = (q . k) * sm_scale * log2(e) in f32; the kv tail past kv_len and,
 //   under causal, col > row (top-left) masked; with a bias, each score
 //   s * fold rounded, then + bias * log2(e) rounded (the JAX kernel's
@@ -20,8 +22,10 @@
 //   bias of -inf gives P = 0); an online softmax in base 2
 //   over BN-column kv tiles with the running max floored at M_CLAMP; P
 //   rounded to bf16 per tile against the tile's running max while l sums
-//   the unrounded f32 P; O += P V with f32 sums; out = O / l in bf16 and
-//   the base-2 lse m + log2(l) in f32.  GQA maps head hq to hq / (Hq/Hk).
+//   the unrounded f32 P (FP4: P first rounded onto the e2m1 grid at (its
+//   row's tile max P) / 6, l summing the rounded P; see e2m1_fast); O +=
+//   P V with f32 sums; out = O / l in bf16 and the base-2 lse m + log2(l)
+//   in f32.  GQA maps head hq to hq / (Hq/Hk).
 //
 // What bounds it on the H100: the tensor cores (4 S^2 D flops, 989 TFLOP/s
 // in bf16) and, at D = 64, nearly as much the exp2 of the softmax on the
@@ -82,6 +86,18 @@
 //             so nothing is copied.  The fold trick of the unbiased softmax
 //             does not hold with a bias: the maxima are taken over the
 //             biased scores.
+//   fp4       64-column tiles, the plain version's KV_TILE (the rounding
+//             scale is each tile's row max), 4 stages at D = 64 and 128,
+//             2 at 256.  The rounding is the design problem: its plain form
+//             (an IEEE division and seven compare-selects an element) costs
+//             several times the exp2's issue slots on the FP32 pipes.  The
+//             kernel takes one reciprocal per row and tile and the grid
+//             index from the bits of x (e2m1_fast: a multiply, an add, two
+//             integer ops and a product an element, three more for the
+//             check), and redoes by the plain rule only the 16-element
+//             steps where some lane's quotient lands near a midpoint, so
+//             no rounded value differs from the plain rule's on the
+//             kernel's own P.
 // An exp2 split between the SFUs and the FMA pipes, stores through shared
 // memory, and a persistent grid are later work.
 #include <stdio.h>
@@ -95,14 +111,19 @@ using namespace sm90;
 constexpr float M_CLAMP = -1e20f;   // floor of the running max
 constexpr float LOG2E_F = 1.4426950408889634f;  // natural-log bias -> base 2
 
-template <int D, bool BIAS = false>
+// The instantiations: B4, B4-float (an additive bias) and B4-fp4 (P
+// rounded to e2m1).
+enum Mode { PLAIN = 0, BIASED = 1, FP4 = 2 };
+
+template <int D, int MODE = PLAIN>
 struct Cfg {
+  static constexpr bool BIAS = MODE == BIASED;
   static constexpr int NWG = D == 64 ? 3 : 2;     // warpgroups, 64 query rows each
   static constexpr int BM = 64 * NWG;             // query rows per block
   static constexpr int THREADS = 128 * NWG;
-  // kv rows per tile (flash_kv_tile; 64 with a bias)
-  static constexpr int BN = BIAS ? 64 : D <= 128 ? 128 : 64;
-  static constexpr int STAGES = BIAS ? 3 : D == 64 ? 4 : D == 128 ? 3 : 2;  // K/V ring depth
+  // kv rows per tile (flash_kv_tile; KV_TILE = 64 with a bias or FP4)
+  static constexpr int BN = MODE != PLAIN ? 64 : D <= 128 ? 128 : 64;
+  static constexpr int STAGES = BIAS ? 3 : D == 256 ? 2 : D == 64 || MODE == FP4 ? 4 : 3;  // K/V ring depth
   static constexpr int CH = D / 64;               // 128-byte column boxes per row
   static constexpr int Q_BYTES = BM * D * 2;
   static constexpr int KV_BYTES = BN * D * 2;     // one K or V stage
@@ -146,6 +167,42 @@ __device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&pf)
   wg_commit();
 }
 
+// B4-fp4's e2m1 rounding of P at a row's scale s = (its tile max P) / 6,
+// by the plain version's rule (ops/attention.py `_round_e2m1_tile`): x =
+// p / s in IEEE f32, the grid {0, .5, 1, 1.5, 2, 3, 4, 6} with a strict >
+// at each midpoint .25, .75, 1.25, 1.75, 2.5, 3.5, 5 (a tie rounds down),
+// then q * s.  The plain form (a division, seven compare-selects) would
+// cost several times the exp2's issue slots, so the kernel rounds from the
+// bits of x instead: with z = x + 1 below 1 (the grid's spacing of .5
+// there is that of one mantissa bit on [1, 2)) and z = x above, q is z
+// rounded to one mantissa bit, a tie down, minus that 1: (bits + 0x1FFFFF)
+// & 0xFFC00000.  Every midpoint is such a tie, and x comes from one
+// reciprocal per row and tile (x = p * r, r = 1 / s), which is within 2
+// ulps of z of the quotient.  So the fast rounding equals the plain rule
+// except where z lies within 16 ulps of a tie; `near` (the minimum over
+// the elements of a masked remainder) reaches 0 exactly there, and the
+// caller redoes those elements by the plain rule.
+constexpr float E2M1_INV_MAX = (float)(1.0 / 6.0);
+constexpr uint32_t TIE_DOWN = 0x1FFFFFu;     // rounds the mantissa to its top bit, a tie down
+constexpr uint32_t TOP_BIT = 0xFFC00000u;    // sign, exponent and that bit
+constexpr uint32_t NEAR_ADD = TIE_DOWN + 16u;
+constexpr uint32_t NEAR_MASK = 0x3FFFE0u;    // 0 iff z is within -15 .. +16 ulps of a tie
+
+__device__ __forceinline__ float e2m1_fast(float p, float s, float r, uint32_t& near) {
+  const float x = __fmul_rn(p, r);
+  const float c = x < 1.f ? 1.f : 0.f;
+  const uint32_t u = __float_as_uint(__fadd_rn(x, c));
+  near = min(near, (u + NEAR_ADD) & NEAR_MASK);
+  return __fmul_rn(__fsub_rn(__uint_as_float((u + TIE_DOWN) & TOP_BIT), c), s);
+}
+
+__device__ __forceinline__ float e2m1_exact(float p, float s) {
+  const float x = __fdiv_rn(p, s);
+  const float q = x > 5.f ? 6.f : x > 3.5f ? 4.f : x > 2.5f ? 3.f : x > 1.75f ? 2.f
+                : x > 1.25f ? 1.5f : x > 0.75f ? 1.f : x > 0.25f ? 0.5f : 0.f;
+  return __fmul_rn(q, s);
+}
+
 // The online softmax of one S tile whose first column is k0, in place: the
 // kv tail and causal masks where the tile crosses them, the new running
 // maxima (the 4 lanes of a quad share a row) and their alphas, P =
@@ -153,19 +210,24 @@ __device__ __forceinline__ void pv_issue(float (&o)[D / 2], const uint32_t (&pf)
 // the row max of the raw products, times fold, is the max of the scaled
 // scores exactly (rounding is monotone), so the scale rides in one FMA with
 // the max's subtraction; a masked score is -inf, whose P is 0.  With a bias
-// (BIAS), the scores become s * fold + bias * log2(e) first, each product
+// (BIASED), the scores become s * fold + bias * log2(e) first, each product
 // and the sum rounded as the plain version rounds them, read from the
 // tile's bias stage `bt` (BM rows of two 32-column boxes, 128-byte
 // swizzled: this thread's float2 of row r, column 8j + 2 q4 lies at
 // `boff` + box (j / 4) + 16 * ((2 (j % 4)) ^ hr), with boff = 128 r + 8 (q4
 // % 2) and hr = (q4 / 2) ^ (r % 8)), and the maxima are those of the
-// biased scores.
-template <int BN, bool BIAS = false, int BM = 0>
+// biased scores.  FP4: P rounded onto the e2m1 grid at (the row's tile max
+// P) / 6, that max taken against the new running max m' (floored at
+// M_CLAMP), and l summing the rounded P, as `_p_tile` rounds it; 16
+// elements a step, redone by the plain rule when any lane of the warp has
+// one near a midpoint.
+template <int BN, int MODE = PLAIN, int BM = 0>
 __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const Params& p, int k0,
                                              int row0, int rA, int rB, int q4, float& mA,
                                              float& mB, float& lA, float& lB, float& aA,
                                              float& aB, const uint8_t* bt = nullptr,
                                              int boff = 0, int hr = 0) {
+  constexpr bool BIAS = MODE == BIASED;
   if constexpr (BIAS) {
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
@@ -197,28 +259,60 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[BN / 2], const Params& 
   cA = fmaxf(cA, __shfl_xor_sync(0xffffffffu, cA, 2));
   cB = fmaxf(cB, __shfl_xor_sync(0xffffffffu, cB, 1));
   cB = fmaxf(cB, __shfl_xor_sync(0xffffffffu, cB, 2));
-  const float nA = fmaxf(fmaxf(mA, BIAS ? cA : __fmul_rn(cA, p.fold)), M_CLAMP);
-  const float nB = fmaxf(fmaxf(mB, BIAS ? cB : __fmul_rn(cB, p.fold)), M_CLAMP);
+  if constexpr (!BIAS) {   // the tile maxima of the scaled scores
+    cA = __fmul_rn(cA, p.fold);
+    cB = __fmul_rn(cB, p.fold);
+  }
+  const float nA = fmaxf(fmaxf(mA, cA), M_CLAMP);
+  const float nB = fmaxf(fmaxf(mB, cB), M_CLAMP);
   aA = ex2(__fsub_rn(mA, nA));
   aB = ex2(__fsub_rn(mB, nB));
   mA = nA;
   mB = nB;
   float pA = 0.f, pB = 0.f;
+  if constexpr (MODE == FP4) {
+    const float sA = __fmul_rn(fmaxf(ex2(__fsub_rn(cA, nA)), 1e-30f), E2M1_INV_MAX);
+    const float sB = __fmul_rn(fmaxf(ex2(__fsub_rn(cB, nB)), 1e-30f), E2M1_INV_MAX);
+    const float iA = __frcp_rn(sA), iB = __frcp_rn(sB);
 #pragma unroll
-  for (int j = 0; j < BN / 8; ++j) {
-    if constexpr (BIAS) {
-      sc[4 * j] = ex2(__fsub_rn(sc[4 * j], nA));
-      sc[4 * j + 1] = ex2(__fsub_rn(sc[4 * j + 1], nA));
-      sc[4 * j + 2] = ex2(__fsub_rn(sc[4 * j + 2], nB));
-      sc[4 * j + 3] = ex2(__fsub_rn(sc[4 * j + 3], nB));
-    } else {
-      sc[4 * j] = ex2(__fmaf_rn(sc[4 * j], p.fold, -nA));
-      sc[4 * j + 1] = ex2(__fmaf_rn(sc[4 * j + 1], p.fold, -nA));
-      sc[4 * j + 2] = ex2(__fmaf_rn(sc[4 * j + 2], p.fold, -nB));
-      sc[4 * j + 3] = ex2(__fmaf_rn(sc[4 * j + 3], p.fold, -nB));
+    for (int g = 0; g < BN / 32; ++g) {
+      float r[16];
+      uint32_t near = NEAR_MASK;
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        float& x = sc[16 * g + i];
+        const bool a = (i & 3) < 2;
+        x = ex2(__fmaf_rn(x, p.fold, a ? -nA : -nB));
+        r[i] = e2m1_fast(x, a ? sA : sB, a ? iA : iB, near);
+      }
+      if (__any_sync(0xffffffffu, near == 0)) {
+#pragma unroll
+        for (int i = 0; i < 16; ++i) r[i] = e2m1_exact(sc[16 * g + i], (i & 3) < 2 ? sA : sB);
+      }
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        sc[16 * g + i] = r[i];
+        if ((i & 3) < 2) pA += r[i];
+        else pB += r[i];
+      }
     }
-    pA += sc[4 * j] + sc[4 * j + 1];
-    pB += sc[4 * j + 2] + sc[4 * j + 3];
+  } else {
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      if constexpr (BIAS) {
+        sc[4 * j] = ex2(__fsub_rn(sc[4 * j], nA));
+        sc[4 * j + 1] = ex2(__fsub_rn(sc[4 * j + 1], nA));
+        sc[4 * j + 2] = ex2(__fsub_rn(sc[4 * j + 2], nB));
+        sc[4 * j + 3] = ex2(__fsub_rn(sc[4 * j + 3], nB));
+      } else {
+        sc[4 * j] = ex2(__fmaf_rn(sc[4 * j], p.fold, -nA));
+        sc[4 * j + 1] = ex2(__fmaf_rn(sc[4 * j + 1], p.fold, -nA));
+        sc[4 * j + 2] = ex2(__fmaf_rn(sc[4 * j + 2], p.fold, -nB));
+        sc[4 * j + 3] = ex2(__fmaf_rn(sc[4 * j + 3], p.fold, -nB));
+      }
+      pA += sc[4 * j] + sc[4 * j + 1];
+      pB += sc[4 * j + 2] + sc[4 * j + 3];
+    }
   }
   lA = __fadd_rn(__fmul_rn(aA, lA), pA);
   lB = __fadd_rn(__fmul_rn(aB, lB), pB);
@@ -246,16 +340,17 @@ __device__ __forceinline__ void rescale(float (&o)[D / 2], float aA, float aB) {
   }
 }
 
-// Grid (ceil(Sq / BM), Hq, B), Cfg<D, BIAS>::THREADS threads; tm_b (the
-// bias, BIAS only) is read by no other instantiation.
-template <int D, bool BIAS>
-__global__ void __launch_bounds__(Cfg<D, BIAS>::THREADS, 1)
+// Grid (ceil(Sq / BM), Hq, B), Cfg<D, MODE>::THREADS threads; tm_b (the
+// bias, BIASED only) is read by no other instantiation.
+template <int D, int MODE>
+__global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v,
                      const __grid_constant__ CUtensorMap tm_b, const Params p) {
-  using C = Cfg<D, BIAS>;
+  using C = Cfg<D, MODE>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES, NWG = C::NWG;
+  constexpr bool BIAS = C::BIAS;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // q full, then per stage: k full, v full
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
@@ -364,7 +459,7 @@ __global__ void __launch_bounds__(Cfg<D, BIAS>::THREADS, 1)
       hand_over();
       wg_wait<0>();
       reg_fence(sc);
-      softmax_tile<BN, BIAS, BM>(sc, p, 0, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB, gB, boff,
+      softmax_tile<BN, MODE, BM>(sc, p, 0, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB, gB, boff,
                                  hr);
       pack_p<BN>(sc, pf);
     }
@@ -387,7 +482,7 @@ __global__ void __launch_bounds__(Cfg<D, BIAS>::THREADS, 1)
       hand_over();
       wg_wait<1>();
       reg_fence(sc);
-      softmax_tile<BN, BIAS, BM>(sc, p, kt * BN, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB,
+      softmax_tile<BN, MODE, BM>(sc, p, kt * BN, row0, rA, rB, q4, mA, mB, lA, lB, aA, aB,
                                  gB + s * C::BIAS_BYTES, boff, hr);
       wg_wait<0>();
       reg_fence(o);
@@ -453,19 +548,19 @@ struct Bias {
   int Hm, Sk;
 };
 
-template <int D, bool BIAS>
+template <int D, int MODE>
 int launch(const void* q, const void* k, const void* v, const long long* st, const Bias& bias,
            Params p, int B, cudaStream_t stream) {
-  using C = Cfg<D, BIAS>;
+  using C = Cfg<D, MODE>;
   CUtensorMap mq, mk, mv, mb;
   const int kv_rows = p.kv_len > 0 ? p.kv_len : 1;  // n_kt = 0 loads nothing
   if (!make_map(&mq, q, D, p.Sq, p.Hq, B, st[2], st[1], st[0], C::BM) ||
       !make_map(&mk, k, D, kv_rows, p.Hk, B, st[5], st[4], st[3], C::BN) ||
       !make_map(&mv, v, D, kv_rows, p.Hk, B, st[8], st[7], st[6], C::BN))
     return -2;
-  mb = mq;  // read only by the BIAS instantiations
+  mb = mq;  // read only by the BIASED instantiations
   p.bias_b = p.bias_h = 0;
-  if constexpr (BIAS) {
+  if constexpr (C::BIAS) {
     // a dimension the bias does not step over maps at size 1, at coordinate 0
     p.bias_b = B > 1 && bias.sb != 0;
     p.bias_h = bias.Hm > 1 && bias.sh != 0;
@@ -475,10 +570,10 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
       return -2;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, BIAS>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      flash_fwd_kernel<D, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.Sq + C::BM - 1) / C::BM, p.Hq, B);
-  flash_fwd_kernel<D, BIAS><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mb, p);
+  flash_fwd_kernel<D, MODE><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mb, p);
   return (int)cudaGetLastError();
 }
 
@@ -501,12 +596,13 @@ const char* sage_flash_error_string(int e) {
 // B4 on bf16 q [B, Hq, Sq, D], k and v [B, Hk, Sk, D] and o [B, Hq, Sq, D],
 // each with its own element strides (batch, head, row; unit column stride,
 // 16-byte aligned base and outer strides).  `bn` must be the kv tile that
-// the plain version walks (ops/attention.py `flash_kv_tile`, 64 with a
-// bias).  B4-float: `bias` f32 [B, Hm, Sq, Sk] (Hm 1 or Hq) with element
-// strides (batch, head, row), a 16-byte aligned base and 16-byte multiples
-// for every stride stepped over, which may be 0 but the row stride; null
-// for none.
-int sage_flash_fwd(int D, int bn, const void* q, const void* k, const void* v, void* o,
+// the plain version walks (ops/attention.py `flash_kv_tile`, KV_TILE = 64
+// with a bias or FP4).  `mode`: 0 B4, or B4-float when `bias` is given (f32
+// [B, Hm, Sq, Sk], Hm 1 or Hq, with element strides (batch, head, row), a
+// 16-byte aligned base and 16-byte multiples for every stride stepped over,
+// which may be 0 but the row stride; null for none), 2 B4-fp4 (P rounded
+// to e2m1; no bias).
+int sage_flash_fwd(int D, int bn, int mode, const void* q, const void* k, const void* v, void* o,
                    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
@@ -517,6 +613,7 @@ int sage_flash_fwd(int D, int bn, const void* q, const void* k, const void* v, v
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * 2) % 16) return -1;
   if (B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk || !(fold > 0.f)) return -1;
+  if ((mode != PLAIN && mode != FP4) || (mode == FP4 && bias)) return -1;
   const Bias bs = {bias, b_sb, b_sh, b_ss, Hm, Sk};
   if (bias && (reinterpret_cast<uintptr_t>(bias) % 16 || (Hm != 1 && Hm != Hq) ||
                b_sb < 0 || b_sh < 0 || (B > 1 && (b_sb * 4) % 16) ||
@@ -531,13 +628,20 @@ int sage_flash_fwd(int D, int bn, const void* q, const void* k, const void* v, v
   p.fold = fold;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bias) {
-    if (D == 64 && bn == Cfg<64, true>::BN) return launch<64, true>(q, k, v, st, bs, p, B, s);
-    if (D == 128 && bn == Cfg<128, true>::BN) return launch<128, true>(q, k, v, st, bs, p, B, s);
+    if (D == 64 && bn == Cfg<64, BIASED>::BN) return launch<64, BIASED>(q, k, v, st, bs, p, B, s);
+    if (D == 128 && bn == Cfg<128, BIASED>::BN)
+      return launch<128, BIASED>(q, k, v, st, bs, p, B, s);
     return -1;
   }
-  if (D == 64 && bn == Cfg<64>::BN) return launch<64, false>(q, k, v, st, bs, p, B, s);
-  if (D == 128 && bn == Cfg<128>::BN) return launch<128, false>(q, k, v, st, bs, p, B, s);
-  if (D == 256 && bn == Cfg<256>::BN) return launch<256, false>(q, k, v, st, bs, p, B, s);
+  if (mode == FP4) {
+    if (D == 64 && bn == Cfg<64, FP4>::BN) return launch<64, FP4>(q, k, v, st, bs, p, B, s);
+    if (D == 128 && bn == Cfg<128, FP4>::BN) return launch<128, FP4>(q, k, v, st, bs, p, B, s);
+    if (D == 256 && bn == Cfg<256, FP4>::BN) return launch<256, FP4>(q, k, v, st, bs, p, B, s);
+    return -1;
+  }
+  if (D == 64 && bn == Cfg<64>::BN) return launch<64, PLAIN>(q, k, v, st, bs, p, B, s);
+  if (D == 128 && bn == Cfg<128>::BN) return launch<128, PLAIN>(q, k, v, st, bs, p, B, s);
+  if (D == 256 && bn == Cfg<256>::BN) return launch<256, PLAIN>(q, k, v, st, bs, p, B, s);
   return -1;
 }
 

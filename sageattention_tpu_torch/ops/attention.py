@@ -12,19 +12,23 @@ configurations, by their launch key (``config_name``):
                  bf16 (:func:`widen_v_codes`)
   B3 / B3-online fused Q with bf16 compute (short sequences), int8 V
   B4             quantized=False: the bf16 flash baseline; with no mask,
-                 window, segments or FP4 rounding it runs
-                 ``csrc/flash_sm90.cu`` (TMA, wgmma, warpgroups taking
-                 turns), whose kv tiles are ``flash_kv_tile(D)`` wide, and
-                 so does ``B4-float`` (a float bias and no other option) at
-                 head dims 64 and 128, on 64-column tiles
-                 (:func:`flash_sm90_route`)
+                 window or segments it runs ``csrc/flash_sm90.cu`` (TMA,
+                 wgmma, warpgroups taking turns), whose kv tiles are
+                 ``flash_kv_tile(D)`` wide, and so does ``B4-float`` (a
+                 float bias and no other option) at head dims 64 and 128,
+                 on 64-column tiles (:func:`flash_sm90_route`)
   B4-fp4         the same with ``p_sim_fp4``: each 64-column P tile rounded
                  to e2m1 at (its row max) / 6 under the online softmax, l
-                 summing the rounded P (``csrc/attention_lowbit.cu``; the
-                 SageAttention3 simulation of ``ops/lowbit.py``)
+                 summing the rounded P (``csrc/flash_sm90.cu``'s FP4 mode at
+                 head dims 64, 128 and 256; the SageAttention3 simulation of
+                 ``ops/lowbit.py``)
   B5-int8        int8 P under the online softmax, int8 V (either Q source)
   B5-fp8(-fusedq) e4m3 P under the online softmax, e4m3 V; a pre-quantized
-                 Q (``q_scale``), or a fused one
+                 Q (``q_scale``), or a fused one.  B5-fp8 with a bf16
+                 output at head dims 64 and 128 runs
+                 ``csrc/attention_q8_sm90.cu`` (an e4m3 wgmma PV on the V^T
+                 copy :func:`transpose_v_codes` writes;
+                 :func:`q8_sm90_route`), as do the ring's B10 forms of it
   B6-static / B6-online  a pre-quantized Q with per-row scales, per-head
                  (folded) or per-column (``k_scale``) K scales, int8 V; with
                  a bf16 output at head dims 64 and 128 it runs
@@ -47,9 +51,11 @@ ids (B8: q pads -1, kv pads -2; with sinks, the per-segment positions
 happens after the scale and before the softmax, in the JAX kernel's order:
 kv tail, causal and window band, segments, bool mask, then the float bias.
 
-``fp8_native_dot`` selects no other numerics here: the kernel always runs
-the e4m3 PV product on exact bf16 copies of the codes, which is what JAX
-computes with ``fp8_native_dot=False``.  Unlike the TPU kernel, the inputs
+``fp8_native_dot`` selects no other numerics here: the plain version and
+``attention.cuh``'s kernel run the e4m3 PV product on exact bf16 copies of
+the codes, which is what JAX computes with ``fp8_native_dot=False``; the
+Hopper B5-fp8 multiplies the codes themselves, its f32 sums per 64-column
+tile within rounding of those.  Unlike the TPU kernel, the inputs
 need no padding to the block sizes: the CUDA kernel masks the ragged edges
 itself and picks its own tiles, so ``block_q``/``block_k``/
 ``block_k_inner`` are accepted and ignored, and the online softmax walks
@@ -197,12 +203,13 @@ def _extended(cfg: AttnConfig) -> bool:
 
 def flash_sm90_route(cfg: AttnConfig, rows: int, D: int) -> bool:
     """True for the launches that ``csrc/flash_sm90.cu`` runs: the bf16
-    flash baseline (``quantized=False``) with no FP4 rounding and no ring
-    offsets or device length, either with no mask, segments, window or row
-    K scales (B4, head dims 64, 128 and 256) or with a float bias and none
-    of the others (B4-float, head dims 64 and 128: at 256 its stages do not
-    fit).  Every other B4 form stays on ``attention.cuh``'s body."""
-    if cfg.quantized or cfg.p_sim_fp4 or is_ring(cfg, rows):
+    flash baseline (``quantized=False``) with no ring offsets or device
+    length, either with no mask, segments, window or row K scales (B4 and,
+    with ``p_sim_fp4``, B4-fp4, head dims 64, 128 and 256) or with a float
+    bias and none of the others (B4-float, head dims 64 and 128: at 256 its
+    stages do not fit).  Every other B4 form stays on ``attention.cuh``'s
+    body."""
+    if cfg.quantized or is_ring(cfg, rows):
         return False
     if not _extended(cfg):
         return True
@@ -224,15 +231,20 @@ def b1_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> b
 def q8_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
     """True for the launches that ``csrc/attention_q8_sm90.cu`` runs: B6
     (int8 Q codes with per-row scales, folded or per-column K scales, int8 V
-    under a bf16 P), static or online, and the ring's B10 forms of it
-    (``-offsets`` and/or ``-kvtrue``), with a bf16 output at head dims 64
-    and 128.  D = 256, an f32 output, ``B6-bf16c`` and every other
-    configuration stay on ``attention.cuh``'s body.  ``cfg`` must be one
-    :func:`config_name` takes."""
+    under a bf16 P), static or online, B5-fp8 (the same Q and K under the
+    online softmax with an e4m3 P and e4m3 V), and the ring's B10 forms of
+    both (``-offsets`` and/or ``-kvtrue``), with a bf16 output at head dims
+    64 and 128.  D = 256, an f32 output, ``B6-bf16c``, ``B5-fp8-fusedq``
+    and every other configuration stay on ``attention.cuh``'s body.
+    ``cfg`` must be one :func:`config_name` takes."""
     if D not in (64, 128) or q_dtype != torch.int8 or cfg.out_dtype != torch.bfloat16:
         return False
     base = config_name(cfg, rows).removeprefix("B10-")
-    return base.replace("-offsets", "").replace("-kvtrue", "") in ("B6-static", "B6-online")
+    return base.replace("-offsets", "").replace("-kvtrue", "") in Q8_SM90_BASES
+
+
+# the base keys that ``csrc/attention_q8_sm90.cu`` runs, by its mode argument
+Q8_SM90_BASES = {"B6-static": 0, "B6-online": 1, "B5-fp8": 2}
 
 
 def flash_kv_tile(D: int) -> int:
@@ -240,7 +252,9 @@ def flash_kv_tile(D: int) -> int:
     ``D`` (its BN): 128 up to D = 128, 64 at D = 256, where Q and two K and
     V stages must fit the 227 KB of shared memory.  B4's bf16 P is rounded
     per tile against the running max, so the plain version walks the same
-    tiles.  With a bias (B4-float) the kernel walks ``KV_TILE``."""
+    tiles.  With a bias (B4-float) or FP4 rounding (B4-fp4, whose scale is
+    each tile's row max, as JAX's 64-wide tiles take it) the kernel walks
+    ``KV_TILE``."""
     return 128 if D <= 128 else 64
 
 
@@ -549,9 +563,9 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     Sk = k.shape[2]
     static = cfg.softmax_mode == "static"
     p_mode = "fp4" if cfg.p_sim_fp4 else "bf16" if cfg.p_bf16 else cfg.pv_dtype
-    # the kernel's kv tile: 64 but on flash_sm90.cu's unmasked route
+    # the kernel's kv tile: 64 but on flash_sm90.cu's unmasked B4
     tile = (flash_kv_tile(D) if flash_sm90_route(cfg, Sq, D) and cfg.masked == "none"
-            else KV_TILE)
+            and not cfg.p_sim_fp4 else KV_TILE)
     qop, qse, cap = _prepare_q(q, cfg, name, k_head_scale, kn_max, q_scale)
     kf = _per_q_head(k, Hq).float()
     vf = _per_q_head(_v_operand(v, cfg.pv_dtype if cfg.quantized else "bf16"), Hq)
@@ -677,9 +691,10 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                      q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None,
                      offsets=None, kv_true=None):
     """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/flash_sm90.cu``
-    (the unmasked and the biased flash, :func:`flash_sm90_route`),
+    (the unmasked, the biased and the FP4 flash, :func:`flash_sm90_route`),
     ``csrc/attention_sm90.cu`` (B1 on a bf16 Q, :func:`b1_sm90_route`),
-    ``csrc/attention_q8_sm90.cu`` (B6 and its B10 forms, :func:`q8_sm90_route`),
+    ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8 and their B10 forms,
+    :func:`q8_sm90_route`),
     ``csrc/attention.cu`` (fused Q) or ``attention_q8.cu`` (pre-quantized
     Q), and their ``*_ext.cu`` builds for the B7-B9 options (masked flash
     too); same arguments and returns as :func:`attention_plain`.  B10's
@@ -756,9 +771,7 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
             ptr(qs), ptr(ks), ptr(head_scale), ptr(knm), ptr(vs), ptr(vm), ptr(lse), ptr(lmin),
             B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal), _F32(cfg.sm_scale * LOG2E)]
     fn = "sage_attn_fwd" if in_dtype != 2 else "sage_attn_fwd_q8"
-    if cfg.p_sim_fp4:
-        fn = "sage_attn_fwd_fp4"
-    elif is_ring(cfg, Sq):
+    if is_ring(cfg, Sq):
         fn = "sage_attn_fwd_ring"
         args += [ptr(offs), ptr(kvt)]
     elif _extended(cfg):
@@ -826,10 +839,11 @@ def _tma_bias(m):
 
 
 def _flash_sm90(q, k, v, cfg, v_mean, bias=None):
-    """Launch ``csrc/flash_sm90.cu`` (B4 and B4-float on
+    """Launch ``csrc/flash_sm90.cu`` (B4, B4-float and B4-fp4 on
     :func:`flash_sm90_route`): ``(out bf16, lse_base2 | None)``.  Any
     strides with a unit column stride load as they are (HND, NHD, sliced
-    heads); ``bias`` is B4-float's ``attn_mask`` (see :func:`_tma_bias`)."""
+    heads); ``bias`` is B4-float's ``attn_mask`` (see :func:`_tma_bias`).
+    The entry takes the mode (2: FP4) and the plain version's kv tile."""
     if v_mean is not None:
         raise ValueError("the flash kernel takes no v_mean")
     if not cfg.sm_scale > 0:
@@ -844,8 +858,10 @@ def _flash_sm90(q, k, v, cfg, v_mean, bias=None):
     if bias is not None:
         bias = _tma_bias(bias)
         tile, bias_args = KV_TILE, (bias.data_ptr(), *bias.stride()[:3], bias.shape[1])
-    _build.call("sage_flash_fwd", q.device, D, tile, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+    if cfg.p_sim_fp4:
+        tile = KV_TILE
+    _build.call("sage_flash_fwd", q.device, D, tile, 2 if cfg.p_sim_fp4 else 0, q.data_ptr(),
+                k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *out.stride()[:3], *bias_args,
                 None if lse is None else lse.data_ptr(),
                 B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
@@ -860,6 +876,32 @@ def widen_v_codes(v):
     ``tools/port_ab.py``'s breakdown; ``v_scale`` stays in the kernel's
     epilogue."""
     return v.to(torch.bfloat16)
+
+
+V_T_GROUP = 16   # kv rows of V^T whose order follows the e4m3 P fragments
+
+
+def transpose_v_codes(v):
+    """B5-fp8's e4m3 V codes ``[B, H, Sk, D]`` as the B operand of its e4m3
+    PV product on ``csrc/attention_q8_sm90.cu``: V^T ``[B, H, D, Sk padded
+    to 16]``, contiguous, zero codes in the padding, the codes themselves
+    (e4m3, no rounding).  An 8-bit wgmma takes B K-major only, so the kv
+    axis must be contiguous; within each group of 16 kv rows, slot
+    ``4 t + 2 h + e`` holds kv row ``8 h + 2 t + e`` (t < 4, h, e < 2), the
+    order in which the kernel's P fragments hold their columns (each thread
+    packs its columns ``2 t, 2 t + 1, 8 + 2 t, 9 + 2 t`` into one register),
+    so the product sums the same (P, V) pairs.  One pass per call (per ring
+    step for B10), its own line in ``tools/port_ab.py``'s breakdown."""
+    B, H, S, D = v.shape
+    Sp = -(-S // V_T_GROUP) * V_T_GROUP
+    u = v.view(torch.uint8)
+    if Sp != S:
+        u = torch.nn.functional.pad(u, (0, 0, 0, Sp - S))
+    out = torch.empty((B, H, D, Sp), dtype=torch.uint8, device=v.device)
+    # source [B, H, group, h, t, e, D] -> [B, H, D, group, t, h, e]
+    out.view(B, H, D, Sp // V_T_GROUP, 4, 2, 2).copy_(
+        u.reshape(B, H, Sp // V_T_GROUP, 2, 4, 2, D).permute(0, 1, 6, 2, 4, 3, 5))
+    return out.view(v.dtype)
 
 
 def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
@@ -910,18 +952,23 @@ def _tma_cols(x):
 
 
 def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, kv_true):
-    """Launch ``csrc/attention_q8_sm90.cu`` (B6 and its B10 forms on
-    :func:`q8_sm90_route`): ``(out bf16, lse_base2 | None)``.  ``q`` int8
-    codes and ``k``/``v`` int8 codes with any strides of unit column stride,
-    the scales as :func:`attention_call` takes them; B10's ``offsets`` and
-    ``kv_true`` stay on the device."""
-    if q.dtype != torch.int8 or k.dtype != torch.int8 or v.dtype != torch.int8:
-        raise TypeError("B6 takes int8 Q, K and V codes")
+    """Launch ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8 and their B10 forms
+    on :func:`q8_sm90_route`): ``(out bf16, lse_base2 | None)``.  ``q``
+    int8 codes and ``k`` int8 codes with any strides of unit column stride,
+    ``v`` int8 codes (B6, widened by :func:`widen_v_codes`) or e4m3 codes
+    (B5-fp8, transposed by :func:`transpose_v_codes`), the scales as
+    :func:`attention_call` takes them; B10's ``offsets`` and ``kv_true``
+    stay on the device."""
+    mode = Q8_SM90_BASES[config_name(cfg, q.shape[2]).removeprefix("B10-").replace(
+        "-offsets", "").replace("-kvtrue", "")]
+    vdt = torch.float8_e4m3fn if mode == 2 else torch.int8
+    if q.dtype != torch.int8 or k.dtype != torch.int8 or v.dtype != vdt:
+        raise TypeError(f"{'B5-fp8' if mode == 2 else 'B6'} takes int8 Q and K codes and "
+                        f"{vdt} V codes")
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
-    static = cfg.softmax_mode == "static"
     q, k = _tma_operand(q), _tma_operand(k)
-    vb = _tma_operand(widen_v_codes(v))
+    vb = transpose_v_codes(v) if mode == 2 else _tma_operand(widen_v_codes(v))
     out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if cfg.emit_lse else None)
@@ -929,7 +976,7 @@ def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, k
     qs = q_scale.float().reshape(B, Hq, Sq).contiguous()
     ks = None if k_scale is None else _tma_cols(k_scale.float().reshape(B, Hk, Sk))
     knm = (_per_q_head(kn_max.float().reshape(B, -1, 1, 1), Hq).reshape(B * Hq).contiguous()
-           if static else None)
+           if mode == 0 else None)
     vs = v_scale.float().reshape(B * Hk * D).contiguous()
     vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
     offs = (offsets.reshape(-1)[:2].to(torch.int32).contiguous()
@@ -937,7 +984,7 @@ def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, k
     kvt = kv_true.reshape(-1)[:1].to(torch.int32).contiguous() if cfg.kv_len_dynamic else None
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     ks_st = (0, 0) if ks is None else ks.stride()[:2]
-    _build.call("sage_attn_fwd_q8_sm90", q.device, D, int(not static), q.data_ptr(),
+    _build.call("sage_attn_fwd_q8_sm90", q.device, D, mode, q.data_ptr(),
                 k.data_ptr(), vb.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
                 *vb.stride()[:3], *out.stride()[:3], qs.data_ptr(), ptr(ks), *ks_st, Sk,
                 ptr(knm), vs.data_ptr(), ptr(vm), ptr(lse), ptr(offs), ptr(kvt),

@@ -13,8 +13,9 @@ is SageAttention3's accuracy at real model lengths.
   a card path at full length;
 - :func:`sageattn3_tiled` (and its alias :func:`sageattn3_blackwell`) runs
   the same quantizers in plain torch, then one launch of the flash kernel
-  in its ``p_sim_fp4`` configuration (B4-fp4, ``csrc/attention_lowbit.cu``),
-  which rounds each 64-column P tile to e2m1 at (its row max) / 6.  The
+  in its ``p_sim_fp4`` configuration (B4-fp4, ``csrc/flash_sm90.cu``'s FP4
+  instantiations), which rounds each 64-column P tile to e2m1 at (its row
+  max) / 6.  The
   quantizers stay plain torch on the card: the JAX package computes them in
   ``jnp`` outside any kernel.  A CPU tensor takes the kernel's plain version.
 """

@@ -139,9 +139,9 @@ def _base_configs():
 
 
 def test_routes_take_exactly_their_configurations():
-    """``flash_sm90_route`` takes exactly B4 (head dims 64, 128 and 256)
-    and B4-float (64 and 128); ``b1_sm90_route`` exactly B1 on a bf16 Q at
-    64 and 128.  Every other key, head dim and Q dtype stays on
+    """``flash_sm90_route`` takes exactly B4 and B4-fp4 (head dims 64, 128
+    and 256) and B4-float (64 and 128); ``b1_sm90_route`` exactly B1 on a
+    bf16 Q at 64 and 128.  Every other key, head dim and Q dtype stays on
     ``attention.cuh``."""
     seen = set()
     for cfg in _configs():
@@ -152,7 +152,7 @@ def test_routes_take_exactly_their_configurations():
         seen.add(name)
         for D in (64, 128, 256):
             assert tatt.flash_sm90_route(cfg, 512, D) == (
-                name == "B4" or (name == "B4-float" and D < 256)), (name, D)
+                name in ("B4", "B4-fp4") or (name == "B4-float" and D < 256)), (name, D)
             for dtype in (torch.bfloat16, torch.float32, torch.float16):
                 assert tatt.b1_sm90_route(cfg, 512, D, dtype) == (
                     name == "B1" and D < 256 and dtype == torch.bfloat16), (name, D, dtype)
@@ -169,9 +169,9 @@ def _record(monkeypatch):
     return calls
 
 
-# the bias arguments of sage_flash_fwd: after (D, tile), 4 pointers and 12
-# strides come (bias, 3 strides, Hm)
-BIAS_AT = 18
+# the bias arguments of sage_flash_fwd: after (D, tile, mode), 4 pointers
+# and 12 strides come (bias, 3 strides, Hm)
+BIAS_AT = 19
 
 
 @pytest.mark.parametrize("D,entry", [(64, "sage_flash_fwd"), (128, "sage_flash_fwd"),
@@ -193,7 +193,7 @@ def test_biased_flash_dispatch(monkeypatch, D, entry):
     assert tatt.attention_call.launches["B4-float"] == before + 1
     if entry == "sage_flash_fwd":
         args = calls[0][1]
-        assert args[:2] == (D, tatt.KV_TILE)
+        assert args[:3] == (D, tatt.KV_TILE, 0)
         assert args[BIAS_AT:BIAS_AT + 5] == (row.data_ptr(), 0, 0, Sq, Hq)
         assert args[-8:-1] == (B, Hq, Hk, Sq, Sq, Sq, 1)
 

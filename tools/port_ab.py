@@ -12,10 +12,10 @@ CogVideoX1.5 (1, 48, 17776, 64), Llama-70B GQA causal (1, 64/8, 16384,
 ``AB <tree> <json>`` with:
 
 - the kernel time (ms) of B2, B5-fp8-fusedq, B-pvbf16, B4 and B1 on the
-  inputs the port's quantizers give them, B4's masked and FP4 forms
-  (``B4-window`` with a 4,096-token window on the causal shapes,
-  ``B4-fp4``), and B4's library call (``F.scaled_dot_product_attention``
-  on its flash backend, ``B4 library``) beside them;
+  inputs the port's quantizers give them, B4's windowed form (``B4-window``
+  with a 4,096-token window on the causal shapes), and B4's library call
+  (``F.scaled_dot_product_attention`` on its flash backend, ``B4
+  library``) beside them;
 - ``sageattn``'s time per call, back to back as a caller makes them;
 - where one ``sageattn`` call spends its time: the device time of each
   kernel it launches (CUDA events around each launch), of the widening of
@@ -63,7 +63,18 @@ diagonal Llama-3.1-8B pair, each with where one launch spends its time
 (``parts``: the kernel, the dequantized bf16 copy of the codes it reads in
 trees that make one, and the rest); then the 2-block CogVideoX1.5-width
 DiT's Adam step through ``sage_dot_product_attention``, whose non-causal
-gradient takes the int8 backward (``cog DiT train step sage``).
+gradient takes the int8 backward (``cog DiT train step sage``);
+
+and last, the kernels this version of the tool was written for: B4-fp4 (the
+e2m1-P flash, 64-column tiles) at CogVideoX1.5, Gemma-7B causal and
+HunyuanVideo (1, 24, 119,056, 128; 3 launches after a warm one) and the
+``sageattn3_blackwell`` call at CogVideoX1.5; B5-fp8 (pre-quantized Q,
+per-column K scales, e4m3 P and V) at CogVideoX1.5 and Llama-70B GQA
+causal, with where one launch spends its time (``parts``: the kernel, the
+e4m3 V^T copy ``transpose_v_codes`` writes in trees that have it, and the
+rest); ``B10-B5-fp8-kvtrue`` on the CogVideoX1.5 chunk pair; and
+``sageattn_qk_int8_pv_fp8``'s call beside ``sageattn``'s (int8 PV) at
+CogVideoX1.5 and Llama-70B GQA (``sageattn pv fp8``).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
@@ -89,7 +100,10 @@ B10_PAIRS = {"B10-B6-static-offsets": ((1, 32, 8, 16384, 128), "static", "offset
              "B10-B6-online-offsets": ((1, 32, 8, 16384, 128), "online", "offsets"),
              "B10-B6-static-kvtrue": ((1, 48, 48, 5120, 64), "static", "kvtrue"),
              "B10-B6-online-kvtrue": ((1, 48, 48, 5120, 64), "online", "kvtrue")}
-B4_FORMS = {"B4-fp4": dict(p_sim_fp4=True), "B4-window": dict(window=4096)}
+B4_FORMS = {"B4-window": dict(window=4096)}
+# B4-fp4's shapes (timed last): B, Hq, Hk, S, D, causal
+FP4_SHAPES = {"cog": CASES["cog"], "gemma": CASES["gemma"],
+              "hunyuan": (1, 24, 24, 119056, 128, False)}
 # C1/C2: B, Hq, Hk, S, D, causal; the forms that stay on backward.cu first,
 # the routed bf16 forms last (as B4 above)
 BWD_SHAPES = {"cog": (1, 48, 48, 17776, 64, False), "llama8k": (1, 32, 8, 8192, 128, True)}
@@ -154,6 +168,55 @@ def one_tree(tree: str) -> dict:
         res.update(q8_bwd_rows(torch, cs, st, _build))
     torch.cuda.empty_cache()
     res.update(sage_dit_step(torch, cs))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res.update(lowbit_fp8_rows(torch, cs, st, _build))
+    return res
+
+
+def lowbit_fp8_rows(torch, cs, st, _build):
+    """B4-fp4's kernel ms at each of ``FP4_SHAPES`` and the
+    ``sageattn3_blackwell`` call at CogVideoX1.5; B5-fp8's at CogVideoX1.5
+    and Llama-70B GQA with where one launch spends its time,
+    ``B10-B5-fp8-kvtrue``'s on the CogVideoX1.5 chunk pair, and
+    ``sageattn_qk_int8_pv_fp8``'s call."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for shape, (B, Hq, Hk, S, D, causal) in FP4_SHAPES.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+        cfg = tatt.AttnConfig(causal=causal, quantized=False, sm_scale=D ** -0.5,
+                              emit_lse=False, p_sim_fp4=True)
+        warm, reps = (1, 3) if shape == "hunyuan" else (3, 20)
+        res[f"{shape} B4-fp4"] = time_fn(lambda: tatt.attention_kernel(q, k, v, cfg),
+                                         warmup=warm, reps=reps) * 1e3
+        if shape == "cog":
+            res["cog sageattn3_blackwell"] = time_fn(lambda: st.sageattn3_blackwell(q, k, v),
+                                                     warmup=2, reps=10) * 1e3
+        del q, k, v
+        torch.cuda.empty_cache()
+    for shape in ("cog", "llama"):
+        B, Hq, Hk, S, D, causal = CASES[shape]
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+        cfg = cs.attn_cfg(torch, "B5-fp8", D, causal)
+        xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+        call = lambda: tatt.attention_kernel(*xs, cfg, **kw)  # noqa: E731
+        res[f"{shape} B5-fp8"] = time_fn(call, warmup=3, reps=20) * 1e3
+        res[f"{shape} B5-fp8 parts"] = call_parts(torch, _build, call,
+                                                  extra=((tatt, "transpose_v_codes"),))
+        res[f"{shape} sageattn pv fp8"] = time_fn(
+            lambda: st.sageattn_qk_int8_pv_fp8(q, k, v, is_causal=causal), warmup=2, reps=10) * 1e3
+        del q, k, v, xs, kw
+    B, Hq, Hk, S, D = 1, 48, 48, 5120, 64
+    q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 3)
+    # the ring's fp8 chunks keep per-column K scales (``RingPlan.fold_k``)
+    cfg = dataclasses.replace(cs.attn_cfg(torch, "B5-fp8", D, False), fuse_v_mean=False,
+                              kv_len_dynamic=True)
+    xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+    kw.pop("v_mean")
+    kw["kv_true"] = torch.tensor([S], dtype=torch.int32, device="cuda")
+    res["B10-B5-fp8-kvtrue"] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw),
+                                       warmup=3, reps=20) * 1e3
     return res
 
 
