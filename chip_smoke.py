@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from ``sageattention_tpu_torch/csrc``
    and prints ``ptxas``'s registers and spills of ``flash_sm90.cu``,
-   ``attention_sm90.cu`` and ``attention_q8_sm90.cu`` (a spill fails the
-   run);
+   ``attention_sm90.cu``, ``attention_q8_sm90.cu`` and
+   ``paged_decode_sm90.cu`` (a spill fails the run);
 3. main path, with every kernel's launch count set to 0 just before and read
    just after.  At the full widths of CogVideoX1.5 joint attention
    (1, 48, 17776, 64) and a Llama-70B GQA causal prefill (64/8 heads, 16,384
@@ -219,7 +219,24 @@ Phases (any failure exits non-zero):
    flash, every kind of launch against the plain version; and phase 15's
    edge cases in B5-fp8's forms (a chunk with 40 real rows and one with
    none among them).  Its rows replace phases 4's, 10's and 11's of the
-   same keys.
+   same keys;
+18. B-pvbf16 (int8 QK^T, V in bf16 as given) on ``csrc/attention_q8_sm90.cu``
+   (pre-quantized Q, static and online; slice 14) and
+   ``csrc/attention_sm90.cu`` (fused Q, static), and D1-int8 on
+   ``csrc/paged_decode_sm90.cu``: ``sageattn_qk_int8_pv_bf16`` and
+   ``sageattn(pv_dtype="bf16", k_scale_mode="head")`` at CogVideoX1.5 and
+   Llama-70B GQA causal, and at CogVideoX1.5 the first with its static
+   check refused (B-pvbf16-online), each counted on its own, held to flash
+   (cosine >= 0.999) and its launch on all heads to the plain version on
+   the sampled heads, with its time, bound and the call's time; then, on
+   every head, phase 15's edge cases in B-pvbf16's forms, the ring's padded
+   CogVideoX1.5 chunks on 8 ranks (2,416 real rows, and none), the fused
+   form's edge cases (lmin too), an fp16 call of the ``_fp16`` alias, and
+   D1-int8's (lengths 0, 1, at a page boundary and one past, pages out of
+   order, ``emit_state`` with a row that sees no key, T = 4 over GQA heads,
+   a sliding window with sinks, 64- and 32-row blocks, MHA).  The ring's
+   B10-B-pvbf16 launches are phase 10's and D1's times phase 8's, on the
+   same routes.  Its B-pvbf16 rows replace phase 4's of the same keys.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -320,7 +337,7 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90"):
+    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "paged_decode_sm90"):
         sm90_ptxas(source)   # registers; a spill fails the run
 
     def timed_phase(what, fn, *args):
@@ -346,13 +363,15 @@ def main() -> int:
     with torch.no_grad():
         kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
         kernels += timed_phase("phase 16", run_bwd_q8_sm90, torch, st, totals)
-    with torch.inference_mode():   # phases 14, 15 and 17's rows replace the earlier ones of their keys
+    # phases 14, 15, 17 and 18's rows replace the earlier ones of their keys
+    with torch.inference_mode():
         new = timed_phase("phase 14", run_fwd_sm90, torch, st, totals)
         new += timed_phase("phase 15", run_q8_sm90, torch, st, totals)
         new += timed_phase("phase 17", run_fp4_fp8_sm90, torch, st, totals, fp4_recs)
+        new += timed_phase("phase 18", run_pvbf16_d1_sm90, torch, st, totals)
     kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
-    for e in kernels:   # launches over every counted path
-        e["launches"] = totals.get(e["name"], 0)
+    for e in kernels:   # launches over every counted path (a form a key shares: its own)
+        e["launches"] = totals.get(e["name"], e["launches"])
     print(f"total: {time.time() - t_start:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": kernels}))
@@ -1914,7 +1933,9 @@ def decode_entry(torch, name, args, kw, launches, label=None):
     print(f"     {label or name}: max_abs_err {err:.3e}, kernel {ms:.4f} ms (device time; the "
           f"wrapper {wrapper_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]}) at {shape}", flush=True)
-    return {"name": label or name, "route": "cuda", "source": SRC_DECODE, "replaces": src_line,
+    src = (SRC_D1_SM90 if name.startswith("D1") and tpd.d1_sm90_route(args[3].dtype, D)
+           else SRC_DECODE)
+    return {"name": label or name, "route": "cuda", "source": src, "replaces": src_line,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
             "wrapper_ms": wrapper_ms, "shape": shape}
@@ -2728,8 +2749,9 @@ def ring_phase(torch, st, totals, rec):
     """10a: B10 at published widths over virtual ranks: CogVideoX1.5 joint
     attention on 4 and 8 ranks (padded: the last shards run the device true
     length; on 8 the last shard is all padding) in the default mode (int8
-    PV, static) and the reference's H100 mode (fp8 PV, online), bf16 PV on
-    4 ranks against single-device ``sageattn``; a Llama-3.1-8B 65,536-token
+    PV, static), on 4 in the reference's H100 mode (fp8 PV, online; its
+    padding-only chunk is phase 17's edge case) and in bf16 PV, against
+    single-device ``sageattn``; a Llama-3.1-8B 65,536-token
     causal prefill on 4 ranks (device offsets: 6 hidden, 4 diagonal and 6
     visible chunk pairs), static and, with x60 inputs, the online fallback."""
     from sageattention_tpu_torch.utils.testing import calc_diff
@@ -2738,7 +2760,7 @@ def ring_phase(torch, st, totals, rec):
     flash = st.flash_attention(q, k, v)
     single = {"int8": st.sageattn(q, k, v), "fp8": st.sageattn_qk_int8_pv_fp8(q, k, v),
               "bf16": st.sageattn_qk_int8_pv_bf16(q, k, v)}
-    runs = [(4, "int8"), (4, "fp8"), (8, "int8"), (8, "fp8"), (4, "bf16")]
+    runs = [(4, "int8"), (4, "fp8"), (8, "int8"), (4, "bf16")]
     expect = {"int8": "B10-B6-static-kvtrue", "fp8": "B10-B5-fp8-kvtrue",
               "bf16": "B10-B-pvbf16-kvtrue"}
     for n, pv in runs:
@@ -4349,7 +4371,8 @@ def b10_b6_phase(torch, st, totals):
 
 
 def q8_sm90_edges(torch, names=("B6-static", "B6-online")):
-    """B6 and B10-B6 (``names``: B5-fp8 and its B10 forms in phase 17) on
+    """B6 and B10-B6 (``names``: B5-fp8 and its B10 forms in phase 17,
+    B-pvbf16's in phase 18) on
     their Hopper kernel at head dims 64 and 128, static and online, each
     against its plain version on every head: a hidden
     chunk pair (no kv tile), a diagonal and a partly hidden pair, a padded
@@ -4394,10 +4417,10 @@ def q8_sm90_edges(torch, names=("B6-static", "B6-online")):
                 cfg = dataclasses.replace(
                     attn_cfg(torch, name, D, causal), fold_k_scale=fold, kv_len=kv_len,
                     causal_dynamic=offs is not None, kv_len_dynamic=kv_true is not None,
-                    fuse_v_mean=not ring)
+                    fuse_v_mean=not ring and not name.startswith("B-pvbf16"))
                 xs, kw = kernel_args(torch, cfg, q, k, v, q_group)
                 if ring:
-                    kw.pop("v_mean")   # the ring adds each chunk's V mean after the merge
+                    kw.pop("v_mean", None)   # the ring adds each chunk's V mean after the merge
                 if offs is not None:
                     kw["offsets"] = torch.tensor(offs, dtype=torch.int32, device="cuda")
                 if kv_true is not None:
@@ -4428,6 +4451,253 @@ def run_q8_sm90(torch, st, totals):
     edge_err = q8_sm90_edges(torch)
     for e in entries:
         e["max_abs_err"] = max(e["max_abs_err"], edge_err)
+    return entries
+
+
+# ------------------------ slice 14: B-pvbf16 and D1-int8 on Hopper ----
+
+SRC_D1_SM90 = "sageattention_tpu_torch/csrc/paged_decode_sm90.cu"
+# B-pvbf16's shapes on the main paths: B, Hq, Hk, S, D, causal
+PVBF16_SHAPES = B6_SHAPES
+# the ring's padded CogVideoX1.5 chunks on 8 ranks: 2,560 rows, the seventh
+# holding 2,416 real ones and the eighth none
+PVBF16_CHUNK = (1, 48, 48, 2560, 64)
+
+
+def pvbf16_phase(torch, st, totals):
+    """B-pvbf16 at each of ``PVBF16_SHAPES`` through
+    ``sageattn_qk_int8_pv_bf16`` (a pre-quantized Q with per-column K
+    scales: attention_q8_sm90.cu) and through ``sageattn(pv_dtype="bf16",
+    k_scale_mode="head")`` (a fused Q, static: attention_sm90.cu), and at
+    CogVideoX1.5 the first with its predictive check refused
+    (B-pvbf16-online): each call counted on its own (one launch), held to
+    flash (cosine >= 0.999), its launch on all heads against the plain
+    version on the sampled heads, with its time and bound and the call's
+    time.  Returns the JSON entries of CogVideoX1.5's launches, the fused
+    form's named ``B-pvbf16 fused Q`` with its own launch count."""
+    from sageattention_tpu_torch import core
+    from sageattention_tpu_torch.utils.testing import time_fn
+    entries, fused = {}, 0
+    for i, (label, (B, H, Hk, S, D, causal)) in enumerate(PVBF16_SHAPES.items()):
+        q, k, v = realistic_qkv(torch, B, H, Hk, S, D, SEED + 190 + i)
+        flash = st.flash_attention(q, k, v, is_causal=causal)
+        calls = [("sageattn_qk_int8_pv_bf16", "B-pvbf16", SRC_Q8_SM90,
+                  lambda: st.sageattn_qk_int8_pv_bf16(q, k, v, is_causal=causal)),
+                 ("sageattn pv_dtype=bf16, head K scales (fused Q)", "B-pvbf16", SRC_ATTN_SM90,
+                  lambda: core._sage_attention(q, k, v, is_causal=causal, pv_dtype="bf16",
+                                               k_scale_mode="head"))]
+        if label == "CogVideoX1.5":
+            calls.append(("sageattn_qk_int8_pv_bf16, static check refused", "B-pvbf16-online",
+                          SRC_Q8_SM90, calls[0][3]))
+        for how, key, src, fn in calls:
+            what = f"{label} ({B},{H}/{Hk},{S},{D}) causal={causal} {how}"
+            real = core._static_safe
+            if key == "B-pvbf16-online":
+                core._static_safe = lambda **_: False
+            try:
+                out, rec = counted_path(torch, what, (key,), {}, totals, fn)
+                exact_counts(what, read_counts(), {key: 1})
+                call_ms = time_fn(fn, warmup=2, reps=10) * 1e3
+            finally:
+                core._static_safe = real
+            check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+                  f"{what}: finite output {tuple(out.shape)}")
+            check_vs(f"{what} vs flash", out, flash, "int8")
+            args, akw = rec[key]
+            check(fwd_source(args[3], args[0]) == src, f"{what}: {key} ran on {src}")
+            e = attn_kernel_entry(torch, key, args, akw, 0, label=f"{key} ({what})")
+            print(f"     {what}: {call_ms:.3f} ms a call", flush=True)
+            if src == SRC_ATTN_SM90:
+                fused += 1
+            if label == "CogVideoX1.5":
+                name = f"{key} fused Q" if src == SRC_ATTN_SM90 else key
+                entries[name] = dict(e, name=name)
+            del out, rec, args, akw
+        del q, k, v, flash
+        torch.cuda.empty_cache()
+    entries["B-pvbf16 fused Q"]["launches"] = fused
+    return list(entries.values())
+
+
+def pvbf16_edges(torch, st, totals):
+    """B-pvbf16 on its Hopper kernels at head dims 64 and 128, each against
+    its plain version on every head: ``q8_sm90_edges`` in B-pvbf16's forms
+    (static, online and the ring's, hidden pairs and a chunk of padding
+    only among them); the ring's padded CogVideoX1.5 chunks on 8 ranks (48
+    heads, 2,560 rows: 2,416 real, and none); the fused-Q form (lmin too):
+    lengths off the tiles, GQA 8/2 causal, ``kv_len < Sk``, NHD strides and
+    a one-row tail block; and an fp16 call of ``sageattn_qk_int8_pv_fp16_cuda``
+    (fp16 output).  Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    errs = [q8_sm90_edges(torch, ("B-pvbf16", "B-pvbf16-online"))]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 195)
+    nhd_view = lambda x: x.transpose(1, 2).contiguous().transpose(1, 2)  # noqa: E731
+
+    def hold(what, args, kw, src, live=None):
+        a = attention_kernel(*args, **kw)
+        b = attention_plain(*args, **kw)
+        kept, note = static_kept_rows(torch, a, b, args[0].shape[2])
+        live = ((b[1] > -1e19) if live is None else live) & kept
+        d = calc_diff(a[0][live], b[0][live]) if bool(live.any()) else 0.0
+        e = float((a[0].float() - b[0].float()).abs().max())
+        dl = float((a[1][live] - b[1][live]).abs().max()) if bool(live.any()) else 0.0
+        errs.append(e)
+        check(d < KERNEL_BAR and dl < LSE_BAR and bool(torch.equal(a[0][~live], b[0][~live]))
+              and a[0].dtype == b[0].dtype and fwd_source(args[3], args[0]) == src,
+              f"{what} vs plain on every head{note} ({int(live.sum())} of {live.numel()} rows "
+              f"see a key): calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {e:.3e}, lse {dl:.2e} < "
+              f"{LSE_BAR}, rows with no key equal, {a[0].dtype}, on {src}")
+
+    B, H, Hk, S, D = PVBF16_CHUNK
+    q, k, v = _edge_qkv(torch, g, B, H, Hk, S, S, D)
+    cfg = dataclasses.replace(attn_cfg(torch, "B-pvbf16", D, False), fold_k_scale=True,
+                              kv_len_dynamic=True)
+    xs, kw = kernel_args(torch, cfg, q, k, v)
+    for real in (2416, 0):
+        kw["kv_true"] = torch.tensor([real], dtype=torch.int32, device="cuda")
+        hold(f"B10-B-pvbf16-kvtrue, CogVideoX1.5 chunk on 8 ranks {(B, H, S, D)}, {real} real "
+             f"rows", (*xs, cfg), kw, SRC_Q8_SM90,
+             live=torch.full((B, H, S), real > 0, device="cuda"))
+    del q, k, v, xs, kw
+    for D in (64, 128):
+        tail = 64 * (3 if D == 64 else 2) + 1
+        # (label, B, Hq, Hk, S, causal, kv_len, nhd)
+        cases = [("unaligned (1,4/2,1000)", 1, 4, 2, 1000, False, 0, False),
+                 ("GQA 8/2, causal (1,8/2,1000)", 1, 8, 2, 1000, True, 0, False),
+                 ("kv_len 900 of Sk 1000", 1, 4, 2, 1000, False, 900, False),
+                 ("NHD strides, causal (1,4/2,1000)", 1, 4, 2, 1000, True, 0, True),
+                 (f"one-row tail, causal (1,2/1,{tail})", 1, 2, 1, tail, True, 0, False)]
+        for label, B, Hq, Hk, S, causal, kv_len, nhd in cases:
+            q, k, v = _edge_qkv(torch, g, B, Hq, Hk, S, S, D)
+            if nhd:
+                q, k, v = (nhd_view(x) for x in (q, k, v))
+            cfg = dataclasses.replace(attn_cfg(torch, "B-pvbf16", D, causal), fuse_q_quant=True,
+                                      fold_k_scale=True, kv_len=kv_len)
+            xs, kw = kernel_args(torch, cfg, q, k, v)
+            hold(f"B-pvbf16 fused Q edge {label}, D={D}", (*xs, cfg), kw, SRC_ATTN_SM90)
+    q, k, v = (x.half() for x in _edge_qkv(torch, g, 1, 8, 2, 4096, 4096, 128))
+    what = "sageattn_qk_int8_pv_fp16_cuda, fp16 (1,8/2,4096,128) causal"
+    out, rec = counted_path(torch, what, ("B-pvbf16",), {}, totals,
+                            lambda: st.sageattn_qk_int8_pv_fp16_cuda(q, k, v, is_causal=True))
+    check(out.dtype == torch.float16 and bool(torch.isfinite(out).all()),
+          f"{what}: finite fp16 output")
+    args, akw = rec["B-pvbf16"]
+    args = (*args[:3], dataclasses.replace(args[3], emit_lse=True), *args[4:])
+    hold(f"B-pvbf16 edge {what}", args, akw, SRC_Q8_SM90)
+    return max(errs)
+
+
+def _d1_pools(torch, g, P, Hk, page, D):
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    k8 = torch.randint(-127, 128, (P, Hk, page, D), generator=g, device="cuda", dtype=torch.int8)
+    v8 = torch.randint(-127, 128, (P, Hk, page, D), generator=g, device="cuda", dtype=torch.int8)
+    ks = rn(P, Hk, 1, page).abs() * 0.01 + 0.002
+    vs, vm = rn(1, Hk, 1, D).abs() * 0.01 + 0.005, rn(1, Hk, 1, D) * 0.1
+    return k8, ks, v8, vs, vm
+
+
+def _d1_stream(torch, table, lens, page, n_pages, window=0, sinks=0):
+    """``sageattn_decode_paged``'s stream for ``table`` and ``lens``: the
+    effective table, and for a sliding window the logical pages and the
+    window's lower bound."""
+    B, max_pages = table.shape
+    dev = table.device
+    last = torch.clamp_min(lens - 1, 0) // page
+    slot = torch.arange(max_pages, device=dev).expand(B, max_pages)
+    lpage = lo = None
+    if window:
+        lo = torch.clamp_min(torch.clamp_min(lens - window, 0), sinks)
+        sp = -(-sinks // page) if sinks else 0
+        band = (lo // page)[:, None] + torch.arange(n_pages - sp, device=dev)[None, :]
+        slot = torch.cat([torch.arange(sp, device=dev).expand(B, sp), band], 1)
+        lpage = slot.to(torch.int32)
+    slot_c = torch.clamp(torch.minimum(slot, last[:, None]), max=max_pages - 1)
+    return torch.gather(table, 1, slot_c.long()).to(torch.int32), lpage, lo
+
+
+def d1_edges(torch):
+    """D1-int8 on ``csrc/paged_decode_sm90.cu`` at head dims 64 and 128,
+    each launch against its plain version on every head (rows that see no
+    key: v_mean exactly, and an lse of -1e30 in both): lengths 0, 1, a page
+    boundary and one past it over pages out of order, with ``emit_state``;
+    a T = 4 window over GQA heads (a length-1 sequence's first rows see no
+    key); a sliding window whose lower bound falls inside a page with sinks
+    covering part of one; 32 window rows of 2 GQA heads a block, 8 rows of 4
+    (64 and 32 rows a block); one row a head (MHA).  A slot frozen mid-run
+    is phase 8b's.  Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops import paged_decode as tpd
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 200)
+    errs = []
+    page = 256
+    # (label, Hg, Hk, R, lens, T, window, sinks, state)
+    cases = [("lengths 0, 1, 256, 257, 4100, pages out of order", 2, 2, 4,
+              (0, 1, 256, 257, 4100), 1, 0, 0, True),
+             ("T = 4 window, GQA 8/2, lengths 300, 517, 1", 8, 2, 4, (300, 517, 1), 4, 0, 0,
+              False),
+             ("sliding W = 300 with 4 sinks, lengths 5000, 700, 290", 2, 2, 4, (5000, 700, 290),
+              1, 300, 4, False),
+             ("T = 32 window, 2 heads a block (64 rows)", 8, 2, 32, (2000, 1500), 32, 0, 0,
+              False),
+             ("T = 8 window, 4 heads a block (32 rows)", 8, 2, 8, (1200, 64), 8, 0, 0, False),
+             ("MHA, one row a head, with state", 4, 4, 1, (3000, 129), 1, 0, 0, True)]
+    for D in (64, 128):
+        for label, Hg, Hk, R, lens, T, window, sinks, state in cases:
+            B = len(lens)
+            max_pages = -(-max(lens) // page) + 1
+            P = B * max_pages + 3
+            k8, ks, v8, vs, vm = _d1_pools(torch, g, P, Hk, page, D)
+            perm = torch.randperm(P, generator=g, device="cuda")[:B * max_pages]
+            table = perm.reshape(B, max_pages).to(torch.int32)
+            L = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            n_pages = max_pages
+            if window:
+                sp = -(-sinks // page) if sinks else 0
+                band = min(max_pages, -(-window // page) + 1)
+                n_pages = sp + band if sp else min(n_pages, band)
+            table_eff, lpage, lo = _d1_stream(torch, table, L, page, n_pages, window, sinks)
+            q = (torch.randn(B, Hg, R, D, generator=g, device="cuda") * D ** -0.5).bfloat16()
+            args = (q, k8, ks, v8, vs, vm, table_eff, L)
+            kw = dict(n_pages=n_pages, window=T, lpage=lpage, win_lo=lo, sinks=sinks,
+                      emit_state=state)
+            a = tpd.paged_decode_kernel(*args, **kw)
+            b = tpd.paged_decode_plain(*args, **kw)
+            what = f"D1-int8 edge {label}, D={D}"
+            # the rows that see a key: the plain version's l > 0, from its lse
+            # (or, without state, the length and the window)
+            rows = torch.arange(R, device="cuda")
+            if T > 1:
+                seen = (L[:, None] - T + rows[None, :] >= 0)[:, None, :].expand(B, Hg, R)
+            else:
+                seen = (L > 0)[:, None, None].expand(B, Hg, R)
+            d = calc_diff(a[0][seen], b[0][seen]) if bool(seen.any()) else 0.0
+            e = float((a[0].float() - b[0].float()).abs().max())
+            ok = d < KERNEL_BAR and bool(torch.equal(a[0][~seen], b[0][~seen]))
+            if state:
+                dl = float((a[1][seen] - b[1][seen]).abs().max()) if bool(seen.any()) else 0.0
+                ok = (ok and dl < LSE_BAR and bool(torch.equal(b[1] > -1e29, seen))
+                      and bool((a[1][~seen] == -1e30).all()))
+            errs.append(e)
+            check(ok and tpd.d1_sm90_route(v8.dtype, D),
+                  f"{what} vs plain on every head ({int(seen.sum())} of {seen.numel()} rows see "
+                  f"a key): calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {e:.3e}, rows with no key "
+                  f"equal, on {SRC_D1_SM90}")
+    return max(errs)
+
+
+def run_pvbf16_d1_sm90(torch, st, totals):
+    """Phase 18 (slice 14): B-pvbf16 on ``csrc/attention_q8_sm90.cu``
+    (pre-quantized Q, static and online; the ring's B10 forms in phase 10)
+    and ``csrc/attention_sm90.cu`` (fused Q, static), and D1-int8 on
+    ``csrc/paged_decode_sm90.cu`` (phase 8 timed its launches), each against
+    its plain version: the main-path calls, then the edge cases.  Returns
+    the B-pvbf16 JSON entries, which replace phase 4's of the same keys."""
+    entries = pvbf16_phase(torch, st, totals)
+    err = pvbf16_edges(torch, st, totals)
+    for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    print(f"     D1-int8 edges: max_abs_err {d1_edges(torch):.3e}", flush=True)
     return entries
 
 

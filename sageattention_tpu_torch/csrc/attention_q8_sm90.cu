@@ -1,5 +1,7 @@
 // B6, the forward on a pre-quantized Q, B5-fp8 (the same with an e4m3 P
-// and e4m3 V: the reference's H100 mode) and the ring's B10 forms of both,
+// and e4m3 V: the reference's H100 mode), B-pvbf16 (the same with V in
+// bf16 as given: the reference's most robust mode) and the ring's B10
+// forms of all three,
 // redesigned for Hopper on attention_sm90.cu's skeleton: TMA loads
 // completing on mbarriers (Q's int8 codes included), a ring of K/V stages
 // refilled by the last warp done with one, int8 wgmma for S = QK^T, the
@@ -11,10 +13,13 @@
 // pre-quantized Q: int8 codes with per-row f32 scales; the K scale folded
 // into those scales or given per column; int8 V under a bf16 P), static
 // and online, in B5-fp8's (its e4m3 branch, attention.py:569-585, epilogue
-// :667-677), and in the ring's B10 forms of both (parallel/ring.py:234-248:
-// device causal offsets and a device true length), at head dims 64 and 128
-// with a bf16 output; D = 256, an f32 output, B5-fp8-fusedq and every
-// other configuration stay on attention.cuh's body.  What it computes, as the plain version
+// :667-677), in B-pvbf16's (pv_dtype "bf16": V in bf16 with no scale and
+// no mean, `AttnConfig.p_bf16`, attention.py:213), static and online, and
+// in the ring's B10 forms of all three (parallel/ring.py:234-248: device
+// causal offsets and a device true length), at head dims 64 and 128 with
+// a bf16 output (B-pvbf16 also fp16, its `_fp16` aliases'); D = 256, an
+// f32 output, B5-fp8-fusedq, bf16 compute and every other configuration
+// stay on attention.cuh's body.  What it computes, as the plain version
 // (ops/attention.py `attention_plain`, the pre-quantized branch of
 // `_prepare_q`, `_dynamic`):
 //   s = (float(q8 . k8) * q_scale[row]) * k_scale[col] (the second factor
@@ -31,7 +36,8 @@
 //   check is the predictive one, made before the launch.  B5-fp8: the
 //   online softmax with P = e4m3(exp2((s - m') + log2 448)) and l summing
 //   those rounded P, O = O * alpha + (P V over the tile, in f32) with V the
-//   e4m3 codes, and the lse less log2 448.
+//   e4m3 codes, and the lse less log2 448.  B-pvbf16: B6's softmax and
+//   product with V the caller's bf16 values, out = O * (1 / l).
 //
 // What bounds it on the H100: the tensor cores (2 S^2 D int8 operations at
 // 1979 TOP/s and 2 S^2 D bf16 ones at 989 TFLOP/s; B5-fp8's PV at the fp8
@@ -67,7 +73,12 @@
 //             (online), as the plain version does.
 //   V         the int8 codes widened once per call to bf16 by the wrapper
 //             (`widen_v_codes`), B1's path: TMA, 128-byte swizzled 64-column
-//             boxes, an MN-major B operand of the PV wgmma.
+//             boxes, an MN-major B operand of the PV wgmma.  B-pvbf16 (the
+//             VB instantiations of the static and online forms) reads the
+//             caller's bf16 V the same way, with no widening pass, and its
+//             epilogue has no v_scale multiply and no v_mean add (B6's and
+//             B5-fp8's instantiations are unchanged: VB only selects the
+//             epilogue).
 //   block     three warpgroups at D = 64 (192 rows), two at D = 128 (128
 //             rows), no producer warp; 4 / 3 stages (static) or 4 (online).
 //   B5-fp8    the S side and the online softmax as B6's, on 64-column kv
@@ -95,6 +106,8 @@
 //             wgmma.
 #include <stdio.h>
 
+#include <cuda_fp16.h>
+
 #include "sm90.cuh"
 
 namespace q8sm90 {
@@ -105,8 +118,10 @@ constexpr float M_CLAMP = -1e20f;  // floor of the running max
 constexpr float FP8_OFFSET_LOG2 = 8.807354922057604f;  // log2(448): e4m3 P fills its range
 
 // The softmax and PV forms: B6-static, B6-online (int8 V widened to bf16
-// under a bf16 P) and B5-fp8 (the online softmax with e4m3 P and V).
-enum Mode { STATIC = 0, ONLINE = 1, FP8 = 2 };
+// under a bf16 P) and B5-fp8 (the online softmax with e4m3 P and V).  The
+// C entry's modes 3 and 4 are B-pvbf16's static and online forms: STATIC
+// and ONLINE with V in bf16 as given (the VB instantiations).
+enum Mode { STATIC = 0, ONLINE = 1, FP8 = 2, PVBF16_STATIC = 3, PVBF16_ONLINE = 4 };
 
 template <int D, int MODE>
 struct Cfg {
@@ -135,6 +150,7 @@ struct Params {
   const int* offsets;    // [2] (q_start, kv_start) on the device, or null
   const int* kv_true;    // [1] the true kv length on the device, or null
   int Hq, Hk, Sq, kv_len, causal;
+  int out_f16;           // VB: 1 writes o as fp16, 0 as bf16
 };
 
 template <int D>
@@ -406,8 +422,9 @@ __device__ __forceinline__ int code_norm2(const uint8_t* q8, int r, int q4) {
 }
 
 // Grid (ceil(Sq / BM), Hq, B), Cfg<D, MODE>::THREADS threads; tm_ks (the
-// per-column K scales) is read by the COLK instantiations only.
-template <int D, int MODE, bool COLK>
+// per-column K scales) is read by the COLK instantiations only.  VB (with
+// MODE STATIC or ONLINE): V in bf16 as given, out = O / l.
+template <int D, int MODE, bool COLK, bool VB>
 __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
     attn_q8_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_k,
@@ -629,7 +646,7 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
     add_t();
   }
 
-  // ------------- epilogue: O / l * v_scale + v_mean, the base-2 lse -------------
+  // ------- epilogue: O / l * v_scale + v_mean (VB: O / l), the base-2 lse -------
   lsA += __shfl_xor_sync(0xffffffffu, lsA, 1);
   lsA += __shfl_xor_sync(0xffffffffu, lsA, 2);
   lsB += __shfl_xor_sync(0xffffffffu, lsB, 1);
@@ -639,25 +656,46 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
   __nv_bfloat16* ob = p.o + b * p.o_sb + hq * p.o_sh;
   const float* vs = p.v_scale + (long long)(b * p.Hk + hk) * D;
   const float* vm = p.v_mean ? p.v_mean + (long long)(b * p.Hk + hk) * D : nullptr;
+  if constexpr (VB) {
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = 8 * j + 2 * q4;
-    const float2 sv = *reinterpret_cast<const float2*>(vs + c);
-    float v0 = __fmul_rn(__fmul_rn(o[4 * j], iA), sv.x);
-    float v1 = __fmul_rn(__fmul_rn(o[4 * j + 1], iA), sv.y);
-    float v2 = __fmul_rn(__fmul_rn(o[4 * j + 2], iB), sv.x);
-    float v3 = __fmul_rn(__fmul_rn(o[4 * j + 3], iB), sv.y);
-    if (vm) {
-      const float2 mv = *reinterpret_cast<const float2*>(vm + c);
-      v0 = __fadd_rn(v0, mv.x);
-      v1 = __fadd_rn(v1, mv.y);
-      v2 = __fadd_rn(v2, mv.x);
-      v3 = __fadd_rn(v3, mv.y);
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * q4;
+      const float v0 = __fmul_rn(o[4 * j], iA), v1 = __fmul_rn(o[4 * j + 1], iA);
+      const float v2 = __fmul_rn(o[4 * j + 2], iB), v3 = __fmul_rn(o[4 * j + 3], iB);
+      if (p.out_f16) {
+        __half* oh = reinterpret_cast<__half*>(ob);
+        if (rA < p.Sq)
+          *reinterpret_cast<__half2*>(oh + rA * p.o_ss + c) = __floats2half2_rn(v0, v1);
+        if (rB < p.Sq)
+          *reinterpret_cast<__half2*>(oh + rB * p.o_ss + c) = __floats2half2_rn(v2, v3);
+      } else {
+        if (rA < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) = __floats2bfloat162_rn(v0, v1);
+        if (rB < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) = __floats2bfloat162_rn(v2, v3);
+      }
     }
-    if (rA < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) = __floats2bfloat162_rn(v0, v1);
-    if (rB < p.Sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) = __floats2bfloat162_rn(v2, v3);
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * q4;
+      const float2 sv = *reinterpret_cast<const float2*>(vs + c);
+      float v0 = __fmul_rn(__fmul_rn(o[4 * j], iA), sv.x);
+      float v1 = __fmul_rn(__fmul_rn(o[4 * j + 1], iA), sv.y);
+      float v2 = __fmul_rn(__fmul_rn(o[4 * j + 2], iB), sv.x);
+      float v3 = __fmul_rn(__fmul_rn(o[4 * j + 3], iB), sv.y);
+      if (vm) {
+        const float2 mv = *reinterpret_cast<const float2*>(vm + c);
+        v0 = __fadd_rn(v0, mv.x);
+        v1 = __fadd_rn(v1, mv.y);
+        v2 = __fadd_rn(v2, mv.x);
+        v3 = __fadd_rn(v3, mv.y);
+      }
+      if (rA < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) = __floats2bfloat162_rn(v0, v1);
+      if (rB < p.Sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) = __floats2bfloat162_rn(v2, v3);
+    }
   }
   if (p.lse && q4 == 0) {
     // static: the cap is the max the P were taken against; F8: the exp
@@ -686,7 +724,7 @@ struct KScale {
   int cols;
 };
 
-template <int D, int MODE, bool COLK>
+template <int D, int MODE, bool COLK, bool VB>
 int launch(const void* q, const void* k, const void* v, const long long* st, const KScale& ks,
            const Params& p, int B, int Sk, cudaStream_t stream) {
   using C = Cfg<D, MODE>;
@@ -715,10 +753,12 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
       return -2;
   }
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_q8_sm90_kernel<D, MODE, COLK>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      attn_q8_sm90_kernel<D, MODE, COLK, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.Sq + C::BM - 1) / C::BM, p.Hq, B);
-  attn_q8_sm90_kernel<D, MODE, COLK><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mks, p);
+  attn_q8_sm90_kernel<D, MODE, COLK, VB><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mks,
+                                                                                p);
   return (int)cudaGetLastError();
 }
 
@@ -726,14 +766,20 @@ template <int D>
 int launch_d(int mode, const void* q, const void* k, const void* v, const long long* st,
              const KScale& ks, const Params& p, int B, int Sk, cudaStream_t s) {
   const bool colk = ks.ptr != nullptr;
+  if (mode == PVBF16_ONLINE)
+    return colk ? launch<D, ONLINE, true, true>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, ONLINE, false, true>(q, k, v, st, ks, p, B, Sk, s);
+  if (mode == PVBF16_STATIC)
+    return colk ? launch<D, STATIC, true, true>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, STATIC, false, true>(q, k, v, st, ks, p, B, Sk, s);
   if (mode == FP8)
-    return colk ? launch<D, FP8, true>(q, k, v, st, ks, p, B, Sk, s)
-                : launch<D, FP8, false>(q, k, v, st, ks, p, B, Sk, s);
+    return colk ? launch<D, FP8, true, false>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, FP8, false, false>(q, k, v, st, ks, p, B, Sk, s);
   if (mode == ONLINE)
-    return colk ? launch<D, ONLINE, true>(q, k, v, st, ks, p, B, Sk, s)
-                : launch<D, ONLINE, false>(q, k, v, st, ks, p, B, Sk, s);
-  return colk ? launch<D, STATIC, true>(q, k, v, st, ks, p, B, Sk, s)
-              : launch<D, STATIC, false>(q, k, v, st, ks, p, B, Sk, s);
+    return colk ? launch<D, ONLINE, true, false>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, ONLINE, false, false>(q, k, v, st, ks, p, B, Sk, s);
+  return colk ? launch<D, STATIC, true, false>(q, k, v, st, ks, p, B, Sk, s)
+              : launch<D, STATIC, false, false>(q, k, v, st, ks, p, B, Sk, s);
 }
 
 }  // namespace
@@ -741,7 +787,9 @@ int launch_d(int mode, const void* q, const void* k, const void* v, const long l
 extern "C" {
 
 const char* sage_attn_q8_sm90_error_string(int e) {
-  if (e == -1) return "unsupported B6 / B5-fp8 configuration (head_dim, GQA, strides or pointers)";
+  if (e == -1)
+    return "unsupported B6 / B5-fp8 / B-pvbf16 configuration (head_dim, GQA, strides or "
+           "pointers)";
   if (e == -2) {
     static char msg[128];
     snprintf(msg, sizeof msg,
@@ -756,12 +804,14 @@ const char* sage_attn_q8_sm90_error_string(int e) {
 // per-row scales q_scale [B*Hq*Sq], int8 K codes k [B, Hk, Sk, D] and bf16
 // o [B, Hq, Sq, D]; `mode` 0 static, 1 online (B6: V codes widened to bf16
 // v [B, Hk, Sk, D]), 2 B5-fp8 (v the e4m3 V^T [B, Hk, D, Sk padded to 16]
-// of ops/attention.py `transpose_v_codes`, kv permuted within each 16);
+// of ops/attention.py `transpose_v_codes`, kv permuted within each 16), 3
+// static and 4 online B-pvbf16 (v the caller's bf16 V [B, Hk, Sk, D], null
+// v_scale and v_mean; out_f16 1 writes o as fp16, else bf16);
 // each with its own element strides (batch, head, row; unit column stride,
 // 16-byte aligned base and outer strides); per-column K scales k_scale f32
 // [B, Hk, ks_cols] with element strides (ks_sb, ks_sh), 16-byte aligned
 // base and strides, or null when folded into q_scale; kn_max [B*Hq]
-// (static), v_scale and v_mean (or null) [B*Hk*D] f32, lse [B*Hq*Sq] (or
+// (static), v_scale and v_mean (or null) [B*Hk*D] f32 (modes 0-2), lse [B*Hq*Sq] (or
 // null) f32 output; offsets [2] (q_start, kv_start) and kv_true [1], int32
 // on the device, or null.
 int sage_attn_fwd_q8_sm90(int D, int mode, const void* q, const void* k, const void* v,
@@ -772,14 +822,16 @@ int sage_attn_fwd_q8_sm90(int D, int mode, const void* q, const void* k, const v
                           long long ks_sh, int ks_cols, const float* kn_max,
                           const float* v_scale, const float* v_mean, float* lse,
                           const int* offsets, const int* kv_true, int B, int Hq, int Hk, int Sq,
-                          int Sk, int kv_len, int causal, void* stream) {
+                          int Sk, int kv_len, int causal, int out_f16, void* stream) {
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   const int ve = mode == FP8 ? 1 : 2;
+  const bool vb = mode == PVBF16_STATIC || mode == PVBF16_ONLINE;
   const int esize[9] = {1, 1, 1, 1, 1, 1, ve, ve, ve};
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * esize[i]) % 16) return -1;
-  if (mode < STATIC || mode > FP8 || B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk ||
-      !q_scale || !v_scale || (mode == STATIC && !kn_max) || (offsets && !causal) ||
+  if (mode < STATIC || mode > PVBF16_ONLINE || B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 ||
+      kv_len > Sk || !q_scale || (vb ? (v_scale || v_mean) : (!v_scale || out_f16)) ||
+      ((mode == STATIC || mode == PVBF16_STATIC) && !kn_max) || (offsets && !causal) ||
       (mode == FP8 && (Sk < 1 || v_ss < (Sk + 15) / 16 * 16)))
     return -1;
   if (k_scale && (reinterpret_cast<uintptr_t>(k_scale) % 16 || ks_sb < 0 || ks_sh < 0 ||
@@ -792,6 +844,7 @@ int sage_attn_fwd_q8_sm90(int D, int mode, const void* q, const void* k, const v
   p.q_scale = q_scale; p.kn_max = kn_max; p.v_scale = v_scale; p.v_mean = v_mean;
   p.lse = lse; p.offsets = offsets; p.kv_true = kv_true;
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.kv_len = kv_len; p.causal = causal;
+  p.out_f16 = out_f16;
   const KScale ks = {k_scale, ks_sb, ks_sh, ks_cols};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64) return launch_d<64>(mode, q, k, v, st, ks, p, B, Sk, s);

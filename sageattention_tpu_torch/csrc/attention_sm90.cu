@@ -1,4 +1,5 @@
-// B1, the static fused-Q int8 forward of `sageattn`'s main path, redesigned
+// B1, the static fused-Q int8 forward of `sageattn`'s main path, and its
+// bf16-V twin B-pvbf16 (`sageattn(pv_dtype="bf16")` on a fused Q), redesigned
 // for Hopper on flash_sm90.cu's skeleton: TMA loads completing on
 // mbarriers, a ring of K/V stages, int8 wgmma for S = QK^T, the softmax of
 // one tile under the PV product of the one before, and warpgroups taking
@@ -8,8 +9,11 @@
 // attention.py:251, launched by `attention_call`) in B1's configuration
 // (fuse_q_quant, fold_k_scale, the static softmax, int8 V under a bf16 P)
 // with a bf16 Q at head dims 64 and 128 and no mask, window, segments or
-// ring offsets; B1 at D = 256 or with an f32/f16 Q, and every other
-// configuration, stay on attention.cuh's body.  What it computes, as the
+// ring offsets, and in B-pvbf16's (the same with V in bf16 as given: no
+// v_scale, no v_mean, out = O / l; the VB instantiations, selected by a
+// null v_scale, whose only change is the epilogue); B1 at D = 256 or with
+// an f32/f16 Q, B-pvbf16's online rerun, and every other configuration,
+// stay on attention.cuh's body.  What it computes, as the
 // plain version (ops/attention.py `attention_plain`):
 //   qf = q * fold (fold = sm_scale * log2(e)); per row, qs = amax|qf| / 127
 //   (1 for a zero row) and the codes q8 = clip(rint(qf * (1 / qs)), -127,
@@ -179,8 +183,9 @@ __device__ __forceinline__ void pack_p(const int (&si)[BN / 2], uint32_t (&pf)[B
   }
 }
 
-// Grid (ceil(Sq / BM), Hq, B), Cfg<D>::THREADS threads.
-template <int D>
+// Grid (ceil(Sq / BM), Hq, B), Cfg<D>::THREADS threads.  VB: V in bf16 as
+// given (B-pvbf16), out = O / l.
+template <int D, bool VB>
 __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     attn_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                      const __grid_constant__ CUtensorMap tm_k,
@@ -379,7 +384,7 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
       release(n_kt - 1);
     }
 
-    // ------- epilogue: O / l * v_scale + v_mean, the base-2 lse, lmin -------
+    // ---- epilogue: O / l * v_scale + v_mean (VB: O / l), the base-2 lse, lmin ----
     lsA += __shfl_xor_sync(0xffffffffu, lsA, 1);
     lsA += __shfl_xor_sync(0xffffffffu, lsA, 2);
     lsB += __shfl_xor_sync(0xffffffffu, lsB, 1);
@@ -389,25 +394,38 @@ __global__ void __launch_bounds__(Cfg<D>::THREADS, 1)
     __nv_bfloat16* ob = p.o + b * p.o_sb + hq * p.o_sh;
     const float* vs = p.v_scale + (long long)(b * p.Hk + hk) * D;
     const float* vm = p.v_mean ? p.v_mean + (long long)(b * p.Hk + hk) * D : nullptr;
+    if constexpr (VB) {
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int c = 8 * j + 2 * q4;
-      const float2 sv = *reinterpret_cast<const float2*>(vs + c);
-      float v0 = __fmul_rn(__fmul_rn(o[4 * j], iA), sv.x);
-      float v1 = __fmul_rn(__fmul_rn(o[4 * j + 1], iA), sv.y);
-      float v2 = __fmul_rn(__fmul_rn(o[4 * j + 2], iB), sv.x);
-      float v3 = __fmul_rn(__fmul_rn(o[4 * j + 3], iB), sv.y);
-      if (vm) {
-        const float2 mv = *reinterpret_cast<const float2*>(vm + c);
-        v0 = __fadd_rn(v0, mv.x);
-        v1 = __fadd_rn(v1, mv.y);
-        v2 = __fadd_rn(v2, mv.x);
-        v3 = __fadd_rn(v3, mv.y);
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * q4;
+        if (rA < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) =
+              __floats2bfloat162_rn(__fmul_rn(o[4 * j], iA), __fmul_rn(o[4 * j + 1], iA));
+        if (rB < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) =
+              __floats2bfloat162_rn(__fmul_rn(o[4 * j + 2], iB), __fmul_rn(o[4 * j + 3], iB));
       }
-      if (rA < p.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) = __floats2bfloat162_rn(v0, v1);
-      if (rB < p.Sq)
-        *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) = __floats2bfloat162_rn(v2, v3);
+    } else {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int c = 8 * j + 2 * q4;
+        const float2 sv = *reinterpret_cast<const float2*>(vs + c);
+        float v0 = __fmul_rn(__fmul_rn(o[4 * j], iA), sv.x);
+        float v1 = __fmul_rn(__fmul_rn(o[4 * j + 1], iA), sv.y);
+        float v2 = __fmul_rn(__fmul_rn(o[4 * j + 2], iB), sv.x);
+        float v3 = __fmul_rn(__fmul_rn(o[4 * j + 3], iB), sv.y);
+        if (vm) {
+          const float2 mv = *reinterpret_cast<const float2*>(vm + c);
+          v0 = __fadd_rn(v0, mv.x);
+          v1 = __fadd_rn(v1, mv.y);
+          v2 = __fadd_rn(v2, mv.x);
+          v3 = __fadd_rn(v3, mv.y);
+        }
+        if (rA < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) = __floats2bfloat162_rn(v0, v1);
+        if (rB < p.Sq)
+          *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) = __floats2bfloat162_rn(v2, v3);
+      }
     }
     if (p.lse && q4 == 0) {
       float* lse = p.lse + (long long)(b * p.Hq + hq) * p.Sq;
@@ -436,7 +454,7 @@ namespace {
 
 using namespace attn90;
 
-template <int D>
+template <int D, bool VB>
 int launch(const void* q, const void* k, const void* v, const long long* st, const Params& p,
            int B, cudaStream_t stream) {
   using C = Cfg<D>;
@@ -449,10 +467,10 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
       !make_map(&mv, v, D, kv_rows, p.Hk, B, st[8], st[7], st[6], C::BN))
     return -2;
   static const cudaError_t attr = cudaFuncSetAttribute(
-      attn_sm90_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+      attn_sm90_kernel<D, VB>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid((p.Sq + C::BM - 1) / C::BM, p.Hq, B);
-  attn_sm90_kernel<D><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, p);
+  attn_sm90_kernel<D, VB><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, p);
   return (int)cudaGetLastError();
 }
 
@@ -461,7 +479,8 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
 extern "C" {
 
 const char* sage_attn_sm90_error_string(int e) {
-  if (e == -1) return "unsupported B1 configuration (head_dim, GQA, strides or pointers)";
+  if (e == -1)
+    return "unsupported B1 / B-pvbf16 configuration (head_dim, GQA, strides or pointers)";
   if (e == -2) {
     static char msg[128];
     snprintf(msg, sizeof msg,
@@ -477,7 +496,8 @@ const char* sage_attn_sm90_error_string(int e) {
 // own element strides (batch, head, row; unit column stride, 16-byte
 // aligned base and outer strides); k_head_scale [B*Hk], kn_max [B*Hq],
 // v_scale and v_mean (or null) [B*Hk*D] f32, lse [B*Hq*Sq] (or null) and
-// lmin [B*Hq*ceil(Sq/64)] f32 outputs.
+// lmin [B*Hq*ceil(Sq/64)] f32 outputs.  A null v_scale runs B-pvbf16: v the
+// caller's bf16 V, no v_scale or v_mean (v_mean must be null too).
 int sage_attn_fwd_sm90(int D, const void* q, const void* k, const void* v, void* o,
                        long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                        long long k_sh, long long k_ss, long long v_sb, long long v_sh,
@@ -490,7 +510,7 @@ int sage_attn_fwd_sm90(int D, const void* q, const void* k, const void* v, void*
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * esize[i]) % 16) return -1;
   if (B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk || !(fold > 0.f) ||
-      !k_head_scale || !kn_max || !v_scale || !lmin)
+      !k_head_scale || !kn_max || (!v_scale && v_mean) || !lmin)
     return -1;
   if (Sq == 0) return 0;
   Params p;
@@ -501,8 +521,11 @@ int sage_attn_fwd_sm90(int D, const void* q, const void* k, const void* v, void*
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.kv_len = kv_len; p.causal = causal;
   p.fold = fold;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch<64>(q, k, v, st, p, B, s);
-  if (D == 128) return launch<128>(q, k, v, st, p, B, s);
+  const bool vb = v_scale == nullptr;
+  if (D == 64)
+    return vb ? launch<64, true>(q, k, v, st, p, B, s) : launch<64, false>(q, k, v, st, p, B, s);
+  if (D == 128)
+    return vb ? launch<128, true>(q, k, v, st, p, B, s) : launch<128, false>(q, k, v, st, p, B, s);
   return -1;
 }
 

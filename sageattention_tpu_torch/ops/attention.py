@@ -37,7 +37,13 @@ configurations, by their launch key (``config_name``):
                  :func:`q8_sm90_route`), as do the ring's B10 forms of it
   B6-bf16c       a pre-quantized Q dequantized to bf16 (bf16 compute),
                  static or online
-  B-pvbf16(-online)  bf16 V (pv_dtype "bf16"), any Q source and compute
+  B-pvbf16(-online)  bf16 V (pv_dtype "bf16"), any Q source and compute;
+                 with native compute at head dims 64 and 128 it runs
+                 ``csrc/attention_q8_sm90.cu`` on a pre-quantized Q (static
+                 and online, a bf16 or fp16 output, and the ring's B10
+                 forms; :func:`q8_sm90_route`) and ``csrc/attention_sm90.cu``
+                 on a fused bf16 Q (static; :func:`b1_sm90_route`), both on
+                 the caller's bf16 V with no scale or mean
 
 Each of them may carry the options of B7-B9, which add a suffix to the key:
 ``-colk`` a fused Q with per-column K scales (varlen, native compute),
@@ -220,31 +226,55 @@ def flash_sm90_route(cfg: AttnConfig, rows: int, D: int) -> bool:
 def b1_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
     """True for the launches that ``csrc/attention_sm90.cu`` runs: B1 (the
     static fused-Q int8 forward with int8 V, no mask, window, segments or
-    ring offsets) on a bf16 Q at head dims 64 and 128.  B1 at D = 256 or
-    with an f32/f16 Q, and every other configuration, stay on
+    ring offsets) and B-pvbf16 in the same configuration (V in bf16 with no
+    scale or mean, native compute) on a bf16 Q at head dims 64 and 128.  B1
+    or B-pvbf16 at D = 256 or with an f32/f16 Q, B-pvbf16 with bf16 compute
+    or a V mean, its online rerun, and every other configuration stay on
     ``attention.cuh``'s body.  ``cfg`` must be one :func:`config_name`
     takes."""
-    return (D in (64, 128) and q_dtype == torch.bfloat16
-            and config_name(cfg, rows) == "B1")
+    if D not in (64, 128) or q_dtype != torch.bfloat16:
+        return False
+    name = config_name(cfg, rows)
+    return name == "B1" or (name == "B-pvbf16" and cfg.fuse_q_quant and _bf16_v_native(cfg))
+
+
+def _bf16_v_native(cfg: AttnConfig) -> bool:
+    """B-pvbf16's forms the Hopper kernels take: native compute (int8 QK^T)
+    and no V mean (their epilogue adds none)."""
+    return cfg.compute_dtype == "native" and not cfg.fuse_v_mean
 
 
 def q8_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
     """True for the launches that ``csrc/attention_q8_sm90.cu`` runs: B6
     (int8 Q codes with per-row scales, folded or per-column K scales, int8 V
     under a bf16 P), static or online, B5-fp8 (the same Q and K under the
-    online softmax with an e4m3 P and e4m3 V), and the ring's B10 forms of
-    both (``-offsets`` and/or ``-kvtrue``), with a bf16 output at head dims
-    64 and 128.  D = 256, an f32 output, ``B6-bf16c``, ``B5-fp8-fusedq``
-    and every other configuration stay on ``attention.cuh``'s body.
+    online softmax with an e4m3 P and e4m3 V), B-pvbf16 (the same Q and K
+    with V in bf16 and no V mean, native compute, static or online), and
+    the ring's B10 forms of all three (``-offsets`` and/or ``-kvtrue``),
+    with a bf16 output (B-pvbf16 also fp16) at head dims 64 and 128.  D =
+    256, an f32 output, ``B6-bf16c``, ``B5-fp8-fusedq``, B-pvbf16 with bf16
+    compute and every other configuration stay on ``attention.cuh``'s body.
     ``cfg`` must be one :func:`config_name` takes."""
-    if D not in (64, 128) or q_dtype != torch.int8 or cfg.out_dtype != torch.bfloat16:
+    if D not in (64, 128) or q_dtype != torch.int8:
         return False
+    base = _q8_base(cfg, rows)
+    if base not in Q8_SM90_BASES:
+        return False
+    if base.startswith("B-pvbf16"):
+        return (cfg.out_dtype in (torch.bfloat16, torch.float16) and not cfg.fuse_q_quant
+                and _bf16_v_native(cfg))
+    return cfg.out_dtype == torch.bfloat16
+
+
+def _q8_base(cfg: AttnConfig, rows: int) -> str:
+    """The launch key of ``cfg`` without B10's prefix and suffixes."""
     base = config_name(cfg, rows).removeprefix("B10-")
-    return base.replace("-offsets", "").replace("-kvtrue", "") in Q8_SM90_BASES
+    return base.replace("-offsets", "").replace("-kvtrue", "")
 
 
 # the base keys that ``csrc/attention_q8_sm90.cu`` runs, by its mode argument
-Q8_SM90_BASES = {"B6-static": 0, "B6-online": 1, "B5-fp8": 2}
+Q8_SM90_BASES = {"B6-static": 0, "B6-online": 1, "B5-fp8": 2, "B-pvbf16": 3,
+                 "B-pvbf16-online": 4}
 
 
 def flash_kv_tile(D: int) -> int:
@@ -692,9 +722,9 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                      offsets=None, kv_true=None):
     """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/flash_sm90.cu``
     (the unmasked, the biased and the FP4 flash, :func:`flash_sm90_route`),
-    ``csrc/attention_sm90.cu`` (B1 on a bf16 Q, :func:`b1_sm90_route`),
-    ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8 and their B10 forms,
-    :func:`q8_sm90_route`),
+    ``csrc/attention_sm90.cu`` (B1 and the fused-Q B-pvbf16 on a bf16 Q,
+    :func:`b1_sm90_route`), ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8,
+    B-pvbf16 and their B10 forms, :func:`q8_sm90_route`),
     ``csrc/attention.cu`` (fused Q) or ``attention_q8.cu`` (pre-quantized
     Q), and their ``*_ext.cu`` builds for the B7-B9 options (masked flash
     too); same arguments and returns as :func:`attention_plain`.  B10's
@@ -721,6 +751,8 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
         out, lse = _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale,
                             offsets, kv_true)
         attention_call.launches[name] += 1
+        if out.dtype != cfg.out_dtype:
+            out = out.to(cfg.out_dtype)
         return out, lse, None
     static = cfg.softmax_mode == "static"
     out_dtype = cfg.out_dtype if cfg.out_dtype in (torch.bfloat16, torch.float32) else torch.float32
@@ -874,7 +906,7 @@ def widen_v_codes(v):
     product of ``csrc/attention_sm90.cu`` and ``attention_q8_sm90.cu``: one
     elementwise pass per call (per ring step for B10), its own line in
     ``tools/port_ab.py``'s breakdown; ``v_scale`` stays in the kernel's
-    epilogue."""
+    epilogue.  B-pvbf16's V is bf16 already and takes no pass."""
     return v.to(torch.bfloat16)
 
 
@@ -905,18 +937,21 @@ def transpose_v_codes(v):
 
 
 def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
-    """Launch ``csrc/attention_sm90.cu`` (B1 on :func:`b1_sm90_route`):
-    ``(out bf16, lse_base2 | None, lmin)``.  ``q`` bf16 with any strides
-    of unit column stride, ``k``/``v`` int8 codes, the scales as
+    """Launch ``csrc/attention_sm90.cu`` (B1 and B-pvbf16 on
+    :func:`b1_sm90_route`): ``(out bf16, lse_base2 | None, lmin)``.  ``q``
+    bf16 with any strides of unit column stride, ``k`` int8 codes, ``v``
+    int8 codes (B1) or float (B-pvbf16: rounded to bf16, its null
+    ``v_scale`` selects the kernel's bf16-V form), the scales as
     :func:`attention_call` takes them."""
-    if k.dtype != torch.int8 or v.dtype != torch.int8:
-        raise TypeError("B1 takes int8 K and V codes")
+    bf16_v = cfg.pv_dtype == "bf16"
+    if k.dtype != torch.int8 or (v.dtype == torch.int8) == bf16_v:
+        raise TypeError("B1 takes int8 K and V codes, B-pvbf16 int8 K codes and a float V")
     if not cfg.sm_scale > 0:
         raise ValueError(f"B1's kernel takes sm_scale > 0, got {cfg.sm_scale}")
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
     q, k = _tma_operand(q), _tma_operand(k)
-    vb = _tma_operand(widen_v_codes(v))
+    vb = _tma_operand(v if bf16_v else widen_v_codes(v))
     out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if cfg.emit_lse else None)
@@ -924,12 +959,12 @@ def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
     # contiguous f32 copies, each held by a name until the launch
     ks = k_head_scale.float().reshape(B * Hk).contiguous()
     knm = _per_q_head(kn_max.float().reshape(B, -1, 1, 1), Hq).reshape(B * Hq).contiguous()
-    vs = v_scale.float().reshape(B * Hk * D).contiguous()
+    vs = None if bf16_v else v_scale.float().reshape(B * Hk * D).contiguous()
     vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     _build.call("sage_attn_fwd_sm90", q.device, D, q.data_ptr(), k.data_ptr(), vb.data_ptr(),
                 out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *vb.stride()[:3],
-                *out.stride()[:3], ks.data_ptr(), knm.data_ptr(), vs.data_ptr(),
-                None if vm is None else vm.data_ptr(), None if lse is None else lse.data_ptr(),
+                *out.stride()[:3], ks.data_ptr(), knm.data_ptr(), ptr(vs), ptr(vm), ptr(lse),
                 lmin.data_ptr(), B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
                 _F32(cfg.sm_scale * LOG2E))
     return out, lse, lmin
@@ -952,32 +987,38 @@ def _tma_cols(x):
 
 
 def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, kv_true):
-    """Launch ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8 and their B10 forms
-    on :func:`q8_sm90_route`): ``(out bf16, lse_base2 | None)``.  ``q``
-    int8 codes and ``k`` int8 codes with any strides of unit column stride,
-    ``v`` int8 codes (B6, widened by :func:`widen_v_codes`) or e4m3 codes
-    (B5-fp8, transposed by :func:`transpose_v_codes`), the scales as
-    :func:`attention_call` takes them; B10's ``offsets`` and ``kv_true``
-    stay on the device."""
-    mode = Q8_SM90_BASES[config_name(cfg, q.shape[2]).removeprefix("B10-").replace(
-        "-offsets", "").replace("-kvtrue", "")]
+    """Launch ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8, B-pvbf16 and their
+    B10 forms on :func:`q8_sm90_route`): ``(out, lse_base2 | None)``, out
+    in bf16 (B-pvbf16: ``cfg.out_dtype``, bf16 or fp16).  ``q`` int8 codes
+    and ``k`` int8 codes with any strides of unit column stride, ``v`` int8
+    codes (B6, widened by :func:`widen_v_codes`), e4m3 codes (B5-fp8,
+    transposed by :func:`transpose_v_codes`) or float (B-pvbf16: rounded to
+    bf16, no scale or mean), the scales as :func:`attention_call` takes
+    them; B10's ``offsets`` and ``kv_true`` stay on the device."""
+    base = _q8_base(cfg, q.shape[2])
+    mode = Q8_SM90_BASES[base]
+    bf16_v = mode >= 3
     vdt = torch.float8_e4m3fn if mode == 2 else torch.int8
-    if q.dtype != torch.int8 or k.dtype != torch.int8 or v.dtype != vdt:
-        raise TypeError(f"{'B5-fp8' if mode == 2 else 'B6'} takes int8 Q and K codes and "
-                        f"{vdt} V codes")
+    if (q.dtype != torch.int8 or k.dtype != torch.int8
+            or (not torch.is_floating_point(v) if bf16_v else v.dtype != vdt)):
+        raise TypeError(f"{base} takes int8 Q and K codes and "
+                        f"{'a float V' if bf16_v else f'{vdt} V codes'}")
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
     q, k = _tma_operand(q), _tma_operand(k)
-    vb = transpose_v_codes(v) if mode == 2 else _tma_operand(widen_v_codes(v))
-    out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
+    vb = (transpose_v_codes(v) if mode == 2 else
+          _tma_operand(v if bf16_v else widen_v_codes(v)))
+    out_f16 = bf16_v and cfg.out_dtype == torch.float16
+    out = torch.empty((B, Hq, Sq, D), dtype=torch.float16 if out_f16 else torch.bfloat16,
+                      device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if cfg.emit_lse else None)
     # contiguous f32 copies, each held by a name until the launch
     qs = q_scale.float().reshape(B, Hq, Sq).contiguous()
     ks = None if k_scale is None else _tma_cols(k_scale.float().reshape(B, Hk, Sk))
     knm = (_per_q_head(kn_max.float().reshape(B, -1, 1, 1), Hq).reshape(B * Hq).contiguous()
-           if mode == 0 else None)
-    vs = v_scale.float().reshape(B * Hk * D).contiguous()
+           if mode in (0, 3) else None)
+    vs = None if bf16_v else v_scale.float().reshape(B * Hk * D).contiguous()
     vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
     offs = (offsets.reshape(-1)[:2].to(torch.int32).contiguous()
             if cfg.causal and cfg.causal_dynamic else None)
@@ -987,8 +1028,8 @@ def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, k
     _build.call("sage_attn_fwd_q8_sm90", q.device, D, mode, q.data_ptr(),
                 k.data_ptr(), vb.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
                 *vb.stride()[:3], *out.stride()[:3], qs.data_ptr(), ptr(ks), *ks_st, Sk,
-                ptr(knm), vs.data_ptr(), ptr(vm), ptr(lse), ptr(offs), ptr(kvt),
-                B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal))
+                ptr(knm), ptr(vs), ptr(vm), ptr(lse), ptr(offs), ptr(kvt),
+                B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal), int(out_f16))
     return out, lse
 
 
@@ -1007,14 +1048,15 @@ def decode_splits(B: int, Hk: int) -> int:
     return max(1, min(DECODE_MAX_SPLITS, -(-DECODE_SPLIT_BLOCKS // (B * Hk))))
 
 
-def split_online_plain(s, vf, p_mode, n_split):
+def split_online_plain(s, vf, p_mode, n_split, min_per=1):
     """Online softmax of one sequence over ``s [H, R, n*64]`` masked base-2
-    scores and ``vf [H, n*64, D]``, walked in ``n_split`` contiguous shares
-    of 64-column tiles and merged exactly.  Returns ``(m, l, acc)``."""
+    scores and ``vf [H, n*64, D]``, walked in contiguous shares of
+    ``max(min_per, ceil(n / n_split))`` 64-column tiles and merged exactly.
+    Returns ``(m, l, acc)``."""
     H, R, n_tok = s.shape
     D = vf.shape[-1]
     n = n_tok // KV_TILE
-    per = -(-n // n_split) if n else 0
+    per = max(min_per, -(-n // n_split)) if n else 0
     parts = []
     for sp in range(n_split if n else 0):
         u0, u1 = sp * per, min(sp * per + per, n)

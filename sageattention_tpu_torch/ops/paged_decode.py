@@ -9,8 +9,13 @@ pool-global per-channel scale and mean, an effective table (stream slot ->
 physical page), per-sequence lengths, and for sliding windows the logical
 page of each slot, the window's lower bound and the sink count.  The TPU
 kernel's DMA tactics (``ways`` concurrent page streams, superpage runs) are
-not taken: the CUDA kernel (``csrc/decode.cu``) chooses its own KV splits
-and skips the slots past a sequence's length or outside its window.
+not taken: the CUDA kernels choose their own KV splits and skip the slots
+past a sequence's length or outside its window.  An int8 V pool at head
+dims 64 and 128 (every ``D1-int8`` key, :func:`d1_sm90_route`) runs
+``csrc/paged_decode_sm90.cu``: TMA-staged tiles, tensor-core scores and PV,
+the query heads of a KV head in one block, and shares of at least
+``D1_MIN_TILES`` live tiles (:func:`d1_splits`); e4m3 and bf16 V and head
+dim 256 run ``csrc/decode.cu``.
 
 Numerics (the Pallas kernel's): s = (q . k8) * ks in f32 with K codes
 upcast; the online softmax with the running max floored at ``M_CLAMP``, l
@@ -32,7 +37,8 @@ import itertools
 
 import torch
 
-from .attention import (KV_TILE, MASK_NEG, _no_tf32, _v_operand, decode_epilogue,
+from . import _build
+from .attention import (DECODE_ROWS, KV_TILE, MASK_NEG, _no_tf32, _v_operand, decode_epilogue,
                         decode_launch, decode_splits, split_online_plain)
 
 _FMT = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.bfloat16: "bf16"}
@@ -55,6 +61,39 @@ LAUNCH_KEYS = tuple(
     config_name(dt, w, sl, sk, st)
     for dt, (w, sl, sk), st in itertools.product(
         _FMT, ((1, False, 0), (2, False, 0), (1, True, 0), (1, True, 1)), (False, True)))
+
+D1_MIN_TILES = 4         # live tiles a share of csrc/paged_decode_sm90.cu walks, at least
+D1_SPLIT_CAP = 16        # its shares per sequence, unless B * Hk is small
+D1_TARGET_BLOCKS = 528   # blocks to aim for then: four on each of the H100's 132 SMs
+D1_MAX_ROWS = 64         # query rows of one of its blocks
+
+
+def d1_sm90_route(v_dtype, D: int) -> bool:
+    """True for the D1 launches that ``csrc/paged_decode_sm90.cu`` runs: an
+    int8 V pool at head dims 64 and 128, every window, sliding, sink and
+    state form.  e4m3 and bf16 V and D = 256 stay on ``csrc/decode.cu``."""
+    return v_dtype == torch.int8 and D in (64, 128)
+
+
+def d1_splits(B: int, Hk: int, n_units: int) -> int:
+    """Shares of one sequence's stream on ``csrc/paged_decode_sm90.cu``
+    (its grid's first axis) for ``B`` sequences of ``Hk`` KV heads over a
+    stream of ``n_units`` 64-token tiles: up to ``D1_SPLIT_CAP``, more when
+    ``B * Hk`` would leave the card short of ``D1_TARGET_BLOCKS`` blocks,
+    never more than a stream of ``D1_MIN_TILES``-tile shares needs.  Each
+    sequence cuts its own live tiles into shares of ``max(D1_MIN_TILES,
+    ceil(live / d1_splits))``, so a long sequence's blocks walk about as
+    many bytes as a short one's."""
+    cap = max(D1_SPLIT_CAP, -(-D1_TARGET_BLOCKS // (B * Hk)))
+    return max(1, min(cap, -(-n_units // D1_MIN_TILES)))
+
+
+def d1_heads_per_block(G: int, R: int) -> int:
+    """Query heads of one KV head that share a block of
+    ``csrc/paged_decode_sm90.cu`` (``G`` of them, ``R`` rows each): the most
+    that divide ``G`` within ``D1_MAX_ROWS`` rows, so K and V are read once
+    for all of them."""
+    return max(h for h in range(1, G + 1) if G % h == 0 and h * R <= D1_MAX_ROWS)
 
 
 def _stream(table_eff, lengths, lpage, win_lo, n_pages, page):
@@ -80,7 +119,10 @@ def paged_decode_plain(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff, 
     sliding = win_lo is not None
     sink_pages = -(-sinks // page) if sinks else 0
     n_units = n_pages * (page // KV_TILE)
-    n_split = decode_splits(B, Hk)
+    if d1_sm90_route(v_pool.dtype, D):   # csrc/paged_decode_sm90.cu's shares
+        n_split, min_per = d1_splits(B, Hk, n_units), D1_MIN_TILES
+    else:
+        n_split, min_per = decode_splits(B, Hk), 1
     qf = q.float()
     outs, lses = [], []
     with _no_tf32():
@@ -108,7 +150,8 @@ def paged_decode_plain(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff, 
                         band = torch.where(slots < sink_pages, pos < sinks, band)
                     keep = keep & band[None, :]
             s = torch.where(keep, s, MASK_NEG)
-            m, l, acc = split_online_plain(s, vb.repeat_interleave(G, 0), "bf16", n_split)
+            m, l, acc = split_online_plain(s, vb.repeat_interleave(G, 0), "bf16", n_split,
+                                           min_per)
             vs = v_scale[0].float().repeat_interleave(G, 0)
             vm = v_mean[0].float().repeat_interleave(G, 0)
             outs.append(decode_epilogue(m, l, acc, vs, 1.0, vm).to(torch.bfloat16))
@@ -119,14 +162,21 @@ def paged_decode_plain(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff, 
 
 def paged_decode_kernel(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff, lengths, *,
                         n_pages, window, lpage=None, win_lo=None, sinks=0, emit_state=False):
-    """Launch D1 on CUDA tensors; same arguments and returns as
-    :func:`paged_decode_plain`."""
+    """Launch D1 on CUDA tensors (``csrc/paged_decode_sm90.cu`` on
+    :func:`d1_sm90_route`, else ``csrc/decode.cu``); same arguments and
+    returns as :func:`paged_decode_plain`."""
     name = config_name(v_pool.dtype, window, win_lo is not None, sinks, emit_state)
     B, Hg, R, D = q.shape
     P, Hk, page, _ = k8_pool.shape
     if k8_pool.dtype != torch.int8:
         raise TypeError("the K pool holds int8 codes")
     table, lp, lens, lo = _stream(table_eff, lengths, lpage, win_lo, n_pages, page)
+    if d1_sm90_route(v_pool.dtype, D):
+        out, lse = _paged_sm90(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table, lp, lens, lo,
+                               n_pages=n_pages, window=window, sinks=sinks,
+                               emit_state=emit_state)
+        paged_decode_call.launches[name] += 1
+        return out, lse
     out, lse = decode_launch(
         paged=True, q=q, k=k8_pool, v=v_pool, ks=ks_pool.float(), lens=lens,
         Hk=Hk, S=0, n_units=n_pages * (page // KV_TILE), n_split=decode_splits(B, Hk),
@@ -135,6 +185,50 @@ def paged_decode_kernel(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff,
         sink_pages=-(-sinks // page) if sinks else 0, v_scale=v_scale, v_mean=v_mean,
         lse_mode=2 if emit_state else 0)
     paged_decode_call.launches[name] += 1
+    return out, lse
+
+
+def _ks_operand(ks_pool):
+    """The K-scale pool ``[P, Hk, 1, page]`` in f32 as ``[P, Hk, page]`` with
+    the bulk copies' alignment: a unit token stride, a 16-byte base and
+    strides of whole 16-byte units (a copy otherwise)."""
+    ks = ks_pool.float()[:, :, 0]
+    if (ks.stride(-1) != 1 or ks.data_ptr() % 16 or ks.stride(0) % 4 or ks.stride(1) % 4):
+        ks = ks.contiguous()
+    return ks
+
+
+def _paged_sm90(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table, lp, lens, lo, *,
+                n_pages, window, sinks, emit_state):
+    """Launch ``csrc/paged_decode_sm90.cu`` (the shares, then their merge)
+    on the stream inputs :func:`_stream` makes; returns ``(out [B, Hg, R, D]
+    bf16, lse_base2 | None)``.  The pools are read in place through tensor
+    maps; every length, table and window stays on the device."""
+    B, Hg, R, D = q.shape
+    P, Hk, page, _ = k8_pool.shape
+    if not 1 <= R <= DECODE_ROWS:
+        raise ValueError(f"D1 takes 1..{DECODE_ROWS} query rows, got {R}")
+    dev = q.device
+    hpb = d1_heads_per_block(Hg // Hk, R)
+    n_units = n_pages * (page // KV_TILE)
+    n_split = d1_splits(B, Hk, n_units)
+    qb = q.to(torch.bfloat16).contiguous()
+    k, v = _build.vector_aligned(k8_pool), _build.vector_aligned(v_pool)
+    ks = _ks_operand(ks_pool)
+    vs = v_scale.float().reshape(Hk * D).contiguous()
+    vm = v_mean.float().reshape(Hk * D).contiguous()
+    pm = torch.empty((B * Hg, n_split, R), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((B * Hg, n_split, R, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Hg, R, D), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((B, Hg, R), dtype=torch.float32, device=dev) if emit_state else None
+    _build.call("sage_paged_decode_sm90", dev, D, hpb, qb.data_ptr(), k.data_ptr(), v.data_ptr(),
+                ks.data_ptr(), *k.stride()[:3], *v.stride()[:3], ks.stride(0), ks.stride(1),
+                lens.data_ptr(), table.data_ptr(), lp.data_ptr(),
+                None if lo is None else lo.data_ptr(), B, P, Hg, Hk, R, n_units, n_pages, page,
+                window, sinks, -(-sinks // page) if sinks else 0, n_split, vs.data_ptr(),
+                vm.data_ptr(), pm.data_ptr(), pl.data_ptr(), pacc.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr())
     return out, lse
 
 

@@ -140,9 +140,9 @@ def _base_configs():
 
 def test_routes_take_exactly_their_configurations():
     """``flash_sm90_route`` takes exactly B4 and B4-fp4 (head dims 64, 128
-    and 256) and B4-float (64 and 128); ``b1_sm90_route`` exactly B1 on a
-    bf16 Q at 64 and 128.  Every other key, head dim and Q dtype stays on
-    ``attention.cuh``."""
+    and 256) and B4-float (64 and 128); ``b1_sm90_route`` exactly B1 and
+    the fused-Q B-pvbf16 with native compute on a bf16 Q at 64 and 128.
+    Every other key, head dim and Q dtype stays on ``attention.cuh``."""
     seen = set()
     for cfg in _configs():
         try:
@@ -154,8 +154,11 @@ def test_routes_take_exactly_their_configurations():
             assert tatt.flash_sm90_route(cfg, 512, D) == (
                 name in ("B4", "B4-fp4") or (name == "B4-float" and D < 256)), (name, D)
             for dtype in (torch.bfloat16, torch.float32, torch.float16):
+                fused_bf16_v = (name == "B-pvbf16" and cfg.fuse_q_quant
+                                and cfg.compute_dtype == "native")
                 assert tatt.b1_sm90_route(cfg, 512, D, dtype) == (
-                    name == "B1" and D < 256 and dtype == torch.bfloat16), (name, D, dtype)
+                    (name == "B1" or fused_bf16_v) and D < 256 and dtype == torch.bfloat16), (
+                        name, D, dtype)
     assert {"B1", "B2", "B1-float", "B1-window", "B4", "B4-float", "B4-bool", "B4-window",
             "B4-fp4", "B4-float-seg"} <= seen
     ring = tatt.AttnConfig(quantized=False, causal=True, causal_dynamic=True,

@@ -1,12 +1,16 @@
 """B6 (the forward on a pre-quantized Q), B5-fp8 (the same with an e4m3 P
-and e4m3 V) and the ring's B10 forms of both on their Hopper route
-(``csrc/attention_q8_sm90.cu``): which configurations, head dims and dtypes
-``q8_sm90_route`` takes; what ``attention_kernel`` hands the entry
+and e4m3 V), B-pvbf16 (the same with V in bf16 as given) and the ring's
+B10 forms of all three on their Hopper route
+(``csrc/attention_q8_sm90.cu``; the fused-Q B-pvbf16 on
+``csrc/attention_sm90.cu``): which configurations, head dims and dtypes
+``q8_sm90_route`` takes; what ``attention_kernel`` hands the entries
 (recorded, not run: no card here), B5-fp8's V^T copy
-(``transpose_v_codes``) included; and the plain version the kernel is held
+(``transpose_v_codes``) included, and B-pvbf16's V with no copy, no scale
+and no mean; and the plain version the kernel is held
 to, at its 64-column online tiles, against the JAX package's
 ``attention_call(fuse_q_quant=False, interpret=True)`` (``pv_dtype="fp8"``
-for B5-fp8) under ``jax.jit`` with 64-wide blocks and a float64 oracle,
+for B5-fp8, ``"bf16"`` for B-pvbf16) under ``jax.jit`` with 64-wide blocks
+and a float64 oracle,
 over head dims 64 and 128, causal or not, GQA 4:1, ``kv_len < Sk``, Q
 groups of 4, 32 and 128 rows, per-column and folded K scales, and the
 ring's device offsets and true length (a hidden chunk and a chunk with
@@ -47,7 +51,7 @@ LSE_EXACT_ATOL = 1e-5
 ORACLE_BAR = 1.5e-3
 FP8_ORACLE_BAR = 5e-3
 BLK = 64
-Q8_KEY = ("B6-static", "B6-online", "B5-fp8")
+Q8_KEY = ("B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online")
 
 
 def _bf16_exact(shape, rng):
@@ -61,7 +65,8 @@ def _quantized(q, k, v, q_group, fold_k, v_mean, sm_scale, pv="int8"):
     scales folded into ``q_scale`` or per-column scales in groups of 16
     rows, V per-channel int8 codes (about their mean with ``v_mean``) or,
     ``pv="fp8"``, e4m3 codes at amax / 448 with ``core.fp8_v``'s code-mean
-    fold, and the static cap factor ``kn_max``."""
+    fold, or, ``pv="bf16"``, V itself with no scale or mean, and the static
+    cap factor ``kn_max``."""
     B, Hq, S, D = q.shape
     G = Hq // k.shape[1]
     q8, qs = tquant.quant_int8_groupwise(q, q_group, fold=sm_scale * tquant.LOG2E)
@@ -77,6 +82,9 @@ def _quantized(q, k, v, q_group, fold_k, v_mean, sm_scale, pv="int8"):
         kw["k_scale"] = tquant.expand_scales_cols(kss, 16, k.shape[2])
         kfac = kw["k_scale"].transpose(2, 3) * k8.float().norm(dim=-1, keepdim=True)
     kw["kn_max"] = kfac.amax(dim=2, keepdim=True).repeat_interleave(G, 1)
+    if pv == "bf16":
+        kw["q_scale"] = q_scale
+        return q8.to(torch.int8), k8.to(torch.int8), v, kw
     vm = v.mean(dim=2, keepdim=True) if v_mean else torch.zeros_like(v[:, :, :1])
     if pv == "fp8":
         vs = ((v - vm).abs().amax(dim=2, keepdim=True) / 448.0).clamp_min(1e-12)
@@ -141,6 +149,10 @@ CASES = [
     ("B10-B5-fp8-offsets-kvtrue", 64, True, 4, 1, 256, 256, 128, True, False, 64, 200),
     ("B10-B5-fp8-offsets", 128, True, 2, 1, 192, 192, 4, False, False, -64, None),
     ("B10-B5-fp8-kvtrue", 64, False, 2, 2, 192, 192, 32, True, False, None, 40),
+    ("B-pvbf16", 64, True, 4, 1, 192, 192, 4, False, False, None, None),
+    ("B-pvbf16-online", 128, False, 2, 1, 192, 150, 32, True, False, None, None),
+    ("B10-B-pvbf16-offsets-kvtrue", 64, True, 4, 1, 256, 256, 128, True, False, 64, 200),
+    ("B10-B-pvbf16-online-offsets", 128, True, 2, 2, 192, 192, 32, False, False, -64, None),
 ]
 
 
@@ -153,9 +165,9 @@ def test_plain_matches_jax_and_oracle(key, D, causal, Hq, Hk, S, kv_len, q_group
     q, k, v = _bf16_exact((1, Hq, S, D), rng), _bf16_exact((1, Hk, S, D), rng), \
         _bf16_exact((1, Hk, S, D), rng)
     sm_scale = D ** -0.5
-    pv = "fp8" if "fp8" in key else "int8"
+    pv = "fp8" if "fp8" in key else "bf16" if "pvbf16" in key else "int8"
     q8, k8, v8, kw = _quantized(q, k, v, q_group, fold_k, v_mean, sm_scale, pv)
-    static = "static" in key
+    static = "static" in key or (pv == "bf16" and "online" not in key)
     if not static:
         kw.pop("kn_max")
     dyn = {}
@@ -187,7 +199,7 @@ def test_plain_matches_jax_and_oracle(key, D, causal, Hq, Hk, S, kv_len, q_group
     if live.any():
         assert calc_diff(out[:, :, live], jo[:, :, live]) < JAX_BAR
         torch.testing.assert_close(lse[:, :, live], jl[:, :, live], atol=LSE_JAX_ATOL, rtol=0)
-        if pv == "int8":
+        if pv != "fp8":   # a bf16 P: l sums the unrounded p
             exact = _exact_lse2(q8, k8, kw, keep)
             torch.testing.assert_close(lse[:, :, live].double(), exact[:, :, live],
                                        atol=LSE_EXACT_ATOL, rtol=0)
@@ -219,30 +231,47 @@ def _key_configs():
 
 
 def test_route_takes_exactly_b6_and_its_ring_forms():
-    """``q8_sm90_route`` takes exactly B6-static, B6-online, B5-fp8 and
-    their B10 forms, at head dims 64 and 128, on int8 Q codes with a bf16
-    output; every other launch key (B5-fp8-fusedq, the masked and windowed
-    B5-fp8 forms among them), D = 256, another Q dtype or an f32/f16 output
-    stays on ``attention.cuh``."""
+    """``q8_sm90_route`` takes exactly B6-static, B6-online, B5-fp8,
+    B-pvbf16 (static and online) and their B10 forms, at head dims 64 and
+    128, on int8 Q codes with a bf16 output (B-pvbf16 also fp16, with
+    native compute and no V mean); every other launch key (B5-fp8-fusedq,
+    the masked and windowed forms among them), D = 256, another Q dtype,
+    an f32 output, B-pvbf16 with bf16 compute, a V mean or a fused Q stays
+    on ``attention.cuh``."""
     configs = _key_configs()
     assert set(configs) == set(tatt.LAUNCH_KEYS)
     routed = set()
     for key, (cfg, rows) in configs.items():
         base = key.removeprefix("B10-").removesuffix("-kvtrue").removesuffix("-offsets")
-        for D, q_dtype, out_dtype in itertools.product(
+        bf16_v = base in ("B-pvbf16", "B-pvbf16-online")
+        for D, q_dtype, out_dtype, cd, vmean, fused in itertools.product(
                 (64, 128, 256), (torch.int8, torch.bfloat16, torch.float32),
-                (torch.bfloat16, torch.float32, torch.float16)):
-            got = tatt.q8_sm90_route(dataclasses.replace(cfg, out_dtype=out_dtype), rows, D,
-                                     q_dtype)
-            want = (base in Q8_KEY and D < 256 and q_dtype == torch.int8
-                    and out_dtype == torch.bfloat16)
-            assert got == want, (key, D, q_dtype, out_dtype)
+                (torch.bfloat16, torch.float32, torch.float16), ("native", "bf16"),
+                (False, True), (False, True)):
+            c = dataclasses.replace(cfg, out_dtype=out_dtype)
+            if bf16_v:   # the fields B-pvbf16's key does not name
+                c = dataclasses.replace(c, compute_dtype=cd, fuse_v_mean=vmean,
+                                        fuse_q_quant=fused,
+                                        fold_k_scale=cfg.fold_k_scale or fused or cd == "bf16")
+                try:
+                    assert tatt.config_name(c, rows) == key
+                except ValueError:   # a fused Q has no ring form
+                    continue
+            elif (cd, vmean, fused) != ("native", False, False):
+                continue
+            got = tatt.q8_sm90_route(c, rows, D, q_dtype)
+            outs = (torch.bfloat16, torch.float16) if bf16_v else (torch.bfloat16,)
+            want = (base in Q8_KEY and D < 256 and q_dtype == torch.int8 and out_dtype in outs
+                    and (not bf16_v or (cd, vmean, fused) == ("native", False, False)))
+            assert got == want, (key, D, q_dtype, out_dtype, cd, vmean, fused)
             if got:
                 routed.add(key)
-    assert routed == {"B6-static", "B6-online", "B5-fp8"} | {
-        b + s for b in ("B10-B6-static", "B10-B6-online", "B10-B5-fp8")
+    assert routed == {"B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online"} | {
+        b + s for b in ("B10-B6-static", "B10-B6-online", "B10-B5-fp8", "B10-B-pvbf16",
+                        "B10-B-pvbf16-online")
         for s in ("-offsets", "-kvtrue", "-offsets-kvtrue")}
-    assert tatt.Q8_SM90_BASES == {"B6-static": 0, "B6-online": 1, "B5-fp8": 2}
+    assert tatt.Q8_SM90_BASES == {"B6-static": 0, "B6-online": 1, "B5-fp8": 2, "B-pvbf16": 3,
+                                  "B-pvbf16-online": 4}
 
 
 def _record(monkeypatch):
@@ -329,8 +358,78 @@ def test_dispatch(monkeypatch, mode, fold, dyn):
     assert args[KNM_AT + 1] == kw["v_scale"].data_ptr()
     want = (ext["offsets"].data_ptr(), ext["kv_true"].data_ptr()) if dyn else (None, None)
     assert args[DYN_AT:DYN_AT + 2] == want
-    assert args[DYN_AT + 2:] == (B, Hq, Hk, S, S, S, int(dyn))
+    assert args[DYN_AT + 2:] == (B, Hq, Hk, S, S, S, int(dyn), 0)
     assert out.dtype == torch.bfloat16 and lse.shape == (B, Hq, S)
+
+
+@pytest.mark.parametrize("mode,fold,dyn,out_dtype", [
+    ("static", False, False, torch.bfloat16), ("online", True, True, torch.float16)])
+def test_dispatch_bf16_v(monkeypatch, mode, fold, dyn, out_dtype):
+    """B-pvbf16 and its B10 forms go to ``sage_attn_fwd_q8_sm90`` with
+    modes 3 (static) and 4 (online): the caller's bf16 V itself (no
+    widening pass, no copy), null ``v_scale`` and ``v_mean``, kn_max only
+    when static, and the output in the call's dtype (fp16 for the ``_fp16``
+    aliases: out_f16 1)."""
+    calls = _record(monkeypatch)
+    monkeypatch.setattr(tatt, "widen_v_codes", lambda v: pytest.fail("B-pvbf16 widened V"))
+    rng = np.random.default_rng(8)
+    B, Hq, Hk, S, D = 1, 4, 2, 200, 128
+    q8 = _codes(rng, B, S, Hq, D).transpose(1, 2)   # NHD storage
+    k8 = _codes(rng, B, Hk, S, D)
+    v = torch.from_numpy(rng.standard_normal((B, Hk, S, D)).astype(np.float32)).bfloat16()
+    kw = dict(q_scale=torch.ones(B, Hq, S, 1))
+    if not fold:
+        kw["k_scale"] = torch.ones(B, Hk, 1, S)
+    if mode == "static":
+        kw["kn_max"] = torch.ones(B, Hq, 1, 1)
+    ext = {}
+    if dyn:
+        ext = dict(offsets=torch.tensor([S, 0], dtype=torch.int32),
+                   kv_true=torch.tensor([150], dtype=torch.int32))
+    cfg = tatt.AttnConfig(quantized=True, pv_dtype="bf16", fold_k_scale=fold,
+                          softmax_mode=mode, pv_via_bf16=mode == "online", causal=dyn,
+                          causal_dynamic=dyn, kv_len_dynamic=dyn, sm_scale=D ** -0.5,
+                          out_dtype=out_dtype)
+    name = tatt.config_name(cfg, S)
+    assert name.removeprefix("B10-").startswith("B-pvbf16")
+    before = tatt.attention_call.launches[name]
+    out, lse, lmin = tatt.attention_kernel(q8, k8, v, cfg, **kw, **ext)
+    assert [fn for fn, _ in calls] == ["sage_attn_fwd_q8_sm90"] and lmin is None
+    assert tatt.attention_call.launches[name] == before + 1
+    args = calls[0][1]
+    assert args[:5] == (D, 3 if mode == "static" else 4, q8.data_ptr(), k8.data_ptr(),
+                        v.data_ptr())
+    assert args[12:15] == v.stride()[:3]
+    assert (args[KNM_AT] is None) == (mode != "static")
+    assert args[KNM_AT + 1:KNM_AT + 3] == (None, None)    # v_scale, v_mean
+    assert args[-1] == int(out_dtype == torch.float16)
+    assert out.dtype == out_dtype and lse.shape == (B, Hq, S)
+
+
+def test_fused_bf16_v_dispatch(monkeypatch):
+    """The fused-Q B-pvbf16 (static, native compute, a bf16 Q at D = 64)
+    goes to ``sage_attn_fwd_sm90`` with the caller's V in bf16 and a null
+    ``v_scale`` and ``v_mean`` (the kernel's bf16-V form), and returns lmin;
+    its bf16-compute form stays on ``sage_attn_fwd``."""
+    calls = _record(monkeypatch)
+    rng = np.random.default_rng(9)
+    B, Hq, Hk, S, D = 1, 4, 2, 200, 64
+    q, v = (torch.from_numpy(rng.standard_normal((B, h, S, D)).astype(np.float32)).bfloat16()
+            for h in (Hq, Hk))
+    k8 = _codes(rng, B, Hk, S, D)
+    kw = dict(k_head_scale=torch.ones(B, Hk, 1, 1), kn_max=torch.ones(B, Hq, 1, 1))
+    for cd, entry in (("native", "sage_attn_fwd_sm90"), ("bf16", "sage_attn_fwd")):
+        cfg = tatt.AttnConfig(quantized=True, pv_dtype="bf16", fuse_q_quant=True,
+                              fold_k_scale=True, softmax_mode="static", compute_dtype=cd,
+                              sm_scale=D ** -0.5)
+        assert tatt.config_name(cfg, S) == "B-pvbf16"
+        calls.clear()
+        out, lse, lmin = tatt.attention_kernel(q, k8, v, cfg, **kw)
+        assert [fn for fn, _ in calls] == [entry] and lmin.shape == (B, Hq, -(-S // 64))
+        if entry == "sage_attn_fwd_sm90":
+            args = calls[0][1]
+            assert args[:4] == (D, q.data_ptr(), k8.data_ptr(), v.data_ptr())
+            assert args[19:21] == (None, None)   # v_scale, v_mean: the bf16-V form
 
 
 def test_dispatch_pads_misaligned_column_scales(monkeypatch):

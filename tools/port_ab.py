@@ -11,7 +11,7 @@ CogVideoX1.5 (1, 48, 17776, 64), Llama-70B GQA causal (1, 64/8, 16384,
 128) and Gemma-7B causal (1, 16, 8192, 256) shapes, it prints one line
 ``AB <tree> <json>`` with:
 
-- the kernel time (ms) of B2, B5-fp8-fusedq, B-pvbf16, B4 and B1 on the
+- the kernel time (ms) of B2, B5-fp8-fusedq, B4 and B1 on the
   inputs the port's quantizers give them, B4's windowed form (``B4-window``
   with a 4,096-token window on the causal shapes), and B4's library call
   (``F.scaled_dot_product_attention`` on its flash backend, ``B4
@@ -74,7 +74,25 @@ causal, with where one launch spends its time (``parts``: the kernel, the
 e4m3 V^T copy ``transpose_v_codes`` writes in trees that have it, and the
 rest); ``B10-B5-fp8-kvtrue`` on the CogVideoX1.5 chunk pair; and
 ``sageattn_qk_int8_pv_fp8``'s call beside ``sageattn``'s (int8 PV) at
-CogVideoX1.5 and Llama-70B GQA (``sageattn pv fp8``).
+CogVideoX1.5 and Llama-70B GQA (``sageattn pv fp8``);
+
+and last, the kernels this version of the tool was written for, after the
+unchanged decode kernel B11-int8 (``chip_smoke.py`` phase 8a's launch: one
+sequence of 8,192 tokens at Llama-3-8B width, its 4 GQA rows folded;
+device time from ``torch.profiler`` and the wrapper's host time): D1-int8
+at phase 8b's shape (8 slots of 4,097 ... 257 tokens, Llama-3-8B attention
+width, pages of 256, one T = 1 step) and its T = 4 window over phase 8e's
+ragged pools (8 slots up to 32,768 tokens, ``D1-int8-causal``), each as
+device and wrapper time; B-pvbf16 (a pre-quantized Q, per-column K
+scales, V in bf16) at CogVideoX1.5 and Llama-70B GQA causal, its online
+form at CogVideoX1.5, its fused-Q form (``sageattn(pv_dtype="bf16")``'s
+launch) at both shapes; ``B10-B-pvbf16-offsets`` on a visible
+Llama-3-8B-width chunk pair (32/8 heads, 8,192 x 8,192, hd 128) and
+``-kvtrue`` on the CogVideoX1.5 chunk pair; and ``sageattn_qk_int8_pv_bf16``'s
+call at both shapes with where it spends its time (``parts``).  Each tree
+also reports ``ptxas``'s registers and spills for ``attention_sm90.cu``,
+``attention_q8_sm90.cu`` and, where it has one, ``paged_decode_sm90.cu``
+(``ptxas``).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
@@ -93,7 +111,7 @@ CASES = {"cog": (1, 48, 48, 17776, 64, False), "llama": (1, 64, 8, 16384, 128, T
 # the changed kernel runs after the configurations that must stay put: what
 # runs before a kernel can move its reading (the parent's B5-fp8-fusedq at
 # Gemma-7B read faster after the old B4 than before it, with the same code)
-KERNELS = ("B2", "B5-fp8-fusedq", "B-pvbf16", "B4", "B1")
+KERNELS = ("B2", "B5-fp8-fusedq", "B4", "B1")
 Q8_KERNELS = ("B6-static", "B6-online")
 # the ring's B10-B6 forms: (B, Hq, Hk, S, D), softmax, device scalar
 B10_PAIRS = {"B10-B6-static-offsets": ((1, 32, 8, 16384, 128), "static", "offsets"),
@@ -171,6 +189,106 @@ def one_tree(tree: str) -> dict:
     torch.cuda.empty_cache()
     with torch.inference_mode():
         res.update(lowbit_fp8_rows(torch, cs, st, _build))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res.update(pvbf16_d1_rows(torch, cs, st, _build))
+    res["ptxas"] = {src: [ln.strip() for ln in _build.build_log.get(src, "").splitlines()
+                          if "Used" in ln or "spill" in ln or "entry function" in ln]
+                    for src in ("attention_sm90", "attention_q8_sm90", "paged_decode_sm90")
+                    if src in _build.SOURCES}
+    return res
+
+
+# the ring's B-pvbf16 chunk pairs: (B, Hq, Hk, S, D), device scalar
+PVBF16_B10 = {"B10-B-pvbf16-offsets": ((1, 32, 8, 8192, 128), "offsets"),
+              "B10-B-pvbf16-kvtrue": ((1, 48, 48, 5120, 64), "kvtrue")}
+
+
+def decode_rows(torch, cs, label, kern_mod, kern_name, call):
+    """``{label: device ms, label wrapper: host ms}`` of the decode kernel
+    launch that ``call`` makes (its inputs recorded, then replayed)."""
+    from sageattention_tpu_torch.utils.testing import time_fn
+    real, seen = getattr(kern_mod, kern_name), []
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    setattr(kern_mod, kern_name, record)
+    try:
+        call()
+    finally:
+        setattr(kern_mod, kern_name, real)
+    args, kw = seen[0]
+    fn = lambda: real(*args, **kw)  # noqa: E731
+    return {label: cs.decode_device_ms(torch, fn),
+            label + " wrapper": time_fn(fn, warmup=3, reps=20) * 1e3}
+
+
+def pvbf16_d1_rows(torch, cs, st, _build):
+    """B11-int8 (unchanged), then D1-int8 and D1-int8-causal (device and
+    wrapper time), B-pvbf16 in its forms, its ring pairs and
+    ``sageattn_qk_int8_pv_bf16``'s call with its parts."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.ops import paged_decode as tpd
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    H, Hk, D = cs.SERVE["attn"]
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 45)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    k, v = rn(1, Hk, 8192, D).bfloat16(), rn(1, Hk, 8192, D).bfloat16()
+    cache = st.kv_cache_init(k, v, 8320, v_format="int8")
+    q = rn(1, H, 1, D).bfloat16()
+    res.update(decode_rows(torch, cs, "B11-int8", tatt, "decode_kernel",
+                           lambda: st.sageattn_decode(q, cache)))
+    del cache, k, v
+    page = cs.SERVE["page"]
+    for label, lens, T in (("D1-int8", [L + 1 for L in cs.SERVE["serve"]], 1),
+                           ("D1-int8-causal", list(cs.SERVE["paged_lens"]), 4)):
+        B = len(lens)
+        per = -(-max(lens) // page) + 1
+        table = st.build_table([[b * per + j for j in range(per)] for b in range(B)], per)
+        k, v = rn(B, Hk, (per - 1) * page, D).bfloat16(), rn(B, Hk, (per - 1) * page, D).bfloat16()
+        cache = st.paged_prefill(k, v, lens, table, num_pages=B * per, page_size=page,
+                                 v_format="int8")
+        q = rn(B, H, T, D).bfloat16()
+        res.update(decode_rows(torch, cs, label, tpd, "paged_decode_kernel",
+                               lambda: st.sageattn_decode_paged(q, cache)))
+        del cache, k, v
+        torch.cuda.empty_cache()
+    for shape in ("cog", "llama"):
+        B, Hq, Hk, S, D, causal = CASES[shape]
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+        forms = [("B-pvbf16", {}), ("B-pvbf16 fused", dict(fuse_q_quant=True, fold_k_scale=True))]
+        if shape == "cog":
+            forms.insert(1, ("B-pvbf16-online", {}))
+        for label, opt in forms:
+            cfg = dataclasses.replace(cs.attn_cfg(torch, label.split()[0], D, causal), **opt)
+            xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+            res[f"{shape} {label}"] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw),
+                                              warmup=3, reps=20) * 1e3
+            del xs, kw
+        call = lambda: st.sageattn_qk_int8_pv_bf16(q, k, v, is_causal=causal)  # noqa: E731
+        res[f"{shape} sageattn pv bf16"] = time_fn(call, warmup=2, reps=10) * 1e3
+        res[f"{shape} sageattn pv bf16 parts"] = call_parts(torch, _build, call)
+        res[f"{shape} sageattn pv bf16 fused"] = time_fn(
+            lambda: st.sageattn(q, k, v, is_causal=causal, pv_dtype="bf16"),
+            warmup=2, reps=10) * 1e3
+        del q, k, v
+        torch.cuda.empty_cache()
+    for name, ((B, Hq, Hk, S, D), dyn) in PVBF16_B10.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 3)
+        causal = dyn == "offsets"
+        cfg = dataclasses.replace(cs.attn_cfg(torch, "B-pvbf16", D, causal), fold_k_scale=True,
+                                  causal_dynamic=causal, kv_len_dynamic=not causal)
+        xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+        if causal:   # q_start - kv_start >= S: every key visible
+            kw["offsets"] = torch.tensor([3 * S, 0], dtype=torch.int32, device="cuda")
+        else:
+            kw["kv_true"] = torch.tensor([S], dtype=torch.int32, device="cuda")
+        res[name] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw), warmup=3,
+                            reps=20) * 1e3
+        del q, k, v, xs, kw
     return res
 
 
