@@ -350,6 +350,7 @@ def main() -> int:
     with torch.inference_mode():
         kernels, totals = timed_phase("phases 3-6", run, torch, st)
         kernels += timed_phase("phase 7", run_slice3, torch, st, totals)
+        kernels += timed_phase("phase 19", run_masked_sm90, torch, st, totals)
         kernels += timed_phase("phase 8", run_serving, torch, st, totals)
     # training needs autograd: phase 9 runs outside inference mode
     kernels += timed_phase("phase 9", run_training, torch, st, totals)
@@ -792,30 +793,34 @@ def window_phase(torch, st, seen, totals, ratios):
 
 def kernel_ratio(torch, seen, key, base, ratios, label, bar):
     """Kernel time of ``key`` over ``base`` on the inputs the path gave them,
-    timed in turns in one call.  Both sides run on one body: dense B1 is
-    timed on ``attention.cuh``'s (:func:`on_old_body`), which its masked
-    and windowed forms run on, and, as information, on its Hopper kernel."""
+    timed in turns in one call, each on the kernel its route picks: the
+    Hopper kernels for both (``attention_sm90.cu`` for dense B1 and its
+    masked forms, ``flash_sm90.cu`` for B4's).  As information,
+    dense B1 on ``attention.cuh``'s body (:func:`on_old_body`), the
+    baseline of these ratios before the masked forms moved to the Hopper
+    kernels."""
     from sageattention_tpu_torch.ops.attention import attention_kernel
     from sageattention_tpu_torch.utils.testing import time_fn
     ts = {}
+    runs = [(base, None), (key, None)] + (
+        [("B1 on attention.cuh", on_old_body)] if base == "B1" else [])
     for _ in range(2):
-        for name in (base, key):
-            args, kw = seen[name]
+        for name, wrap in runs:
+            args, kw = seen[name.split()[0]]
             timed = lambda: time_fn(lambda: attention_kernel(*args, **kw),  # noqa: E731
                                     warmup=2, reps=10) * 1e3
-            ts.setdefault(name, []).append(on_old_body(timed) if name == "B1" else timed())
-            if name == "B1":
-                ts.setdefault("B1 sm90", []).append(timed())
-    a, b = min(ts[key]), min(ts[base])
-    ratios[label] = {key: a, base: b, "ratio": a / b}
-    print(f"     {key} {a:.3f} ms vs {base} {b:.3f} ms on the same inputs: ratio {a / b:.3f}",
-          flush=True)
-    if "B1 sm90" in ts:
-        c = min(ts["B1 sm90"])
-        print(f"     (dense B1 on attention.cuh {b:.3f} ms; on attention_sm90.cu {c:.3f} ms: "
-              f"{key} over it {a / c:.3f})", flush=True)
+            ts.setdefault(name, []).append(wrap(timed) if wrap else timed())
+    t = {name: min(v) for name, v in ts.items()}
+    a, b = t[key], t[base]
+    ratios[label] = dict(t, ratio=a / b)
+    print(f"     {key} {a:.3f} ms vs {base} {b:.3f} ms on the same inputs, both on their Hopper "
+          f"kernels: ratio {a / b:.3f}", flush=True)
+    if base == "B1":
+        c = t["B1 on attention.cuh"]
+        print(f"     (dense B1 on attention.cuh {c:.3f} ms: {key} over it {a / c:.3f})",
+              flush=True)
     if bar is not None:
-        check(a / b < bar, f"{key} / {base} = {a / b:.3f} < {bar}")
+        check(a / b < bar, f"{key} / {base} (Hopper) = {a / b:.3f} < {bar}")
 
 
 def on_old_body(fn):
@@ -4702,6 +4707,138 @@ def run_pvbf16_d1_sm90(torch, st, totals):
 
 
 # ---------------------------------------------------------------- configs ----
+
+# ------------------------------------------------ slice 15 (phase 19) ----
+
+def colk_args(torch, q, k, v):
+    """B1-colk inputs from bf16 q/k/v: A1/A2's V and kn_max, K quantized in
+    64-row groups (per-column scales, their norms in kn_max), no head
+    scale, as the varlen path hands them."""
+    from sageattention_tpu_torch.ops import quant as tquant
+    from sageattention_tpu_torch.ops import quant_kernels as qk
+    S, G = k.shape[2], q.shape[1] // k.shape[1]
+    km = qk.channel_stats(k, S)[0]
+    k8, ksg, kcap = qk.quant_int8_groupwise(k, 64, sub=km, with_capmax=True, s_true=S)
+    (_, _, v8), kw = fused_args(torch, q, k, v, True)
+    kw.update(k_head_scale=None, kn_max=kcap.repeat_interleave(G, 1),
+              k_scale=tquant.expand_scales_cols(ksg, 64, k8.shape[2])[..., :S])
+    return (q, k8[:, :, :S], v8), kw
+
+
+def _segment_ids(torch, B, S, lens, pads=(-1, -2)):
+    """q and kv segment ids ``[B, S]`` (pads -1 and -2 past the lengths) and
+    each kv token's position in its segment (``SEGPOS_PAD`` on pads)."""
+    from sageattention_tpu_torch.ops.attention import SEGPOS_PAD
+    ids = torch.cat([torch.full((n,), i, dtype=torch.int32) for i, n in enumerate(lens)])
+    pos = torch.cat([torch.arange(n, dtype=torch.int32) for n in lens])
+    pad = S - len(ids)
+    cat = lambda x, v: torch.cat([x, torch.full((pad,), v, dtype=torch.int32)])  # noqa: E731
+    return tuple(x.cuda()[None].expand(B, S).contiguous()
+                 for x in (cat(ids, pads[0]), cat(ids, pads[1]), cat(pos, SEGPOS_PAD)))
+
+
+def masked_sm90_edges(torch):
+    """B4-window and B4-bool on ``flash_sm90.cu`` (head dims 64, 128, 256)
+    and B1's window, bool and segment forms on ``attention_sm90.cu`` (64,
+    128), each launched once on every head and held to its plain version
+    on every head (lmin too for B1): a window smaller than a tile with its
+    sinks far below the band, a window of 300 (the band starting mid-tile)
+    with GQA 8/2, a left-padded causal batch whose first q block sees no
+    key, block-sparse masks per head and one for all heads with dead, full
+    and partly live tiles (a thin stripe and ragged block edges), Sq != Sk;
+    segments crossing q tiles with lengths off 64, pads -1 / -2, per-column
+    K scales, with and without a window and per-segment sinks.  Returns the
+    largest max_abs_err."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel, attention_plain
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 190)
+    errs = []
+
+    def hold(what, args, kw):
+        a = attention_kernel(*args, **kw)
+        b = attention_plain(*args, **kw)
+        kept, note = static_kept_rows(torch, a, b, args[0].shape[2])
+        nokey = b[1] <= -1e19   # the online softmax's rows with no live key
+        live = ~nokey & kept
+        d = calc_diff(a[0][live], b[0][live])
+        e = float((a[0][live].float() - b[0][live].float()).abs().max())
+        dl = float((a[1][live] - b[1][live]).abs().max())
+        errs.append(e)
+        check(d < KERNEL_BAR and dl < LSE_BAR and bool(torch.equal(a[0][nokey], b[0][nokey]))
+              and bool(torch.equal(a[1] > -1e19, ~nokey))
+              and fwd_source(args[3], args[0]) in (SRC_FLASH, SRC_ATTN_SM90),
+              f"{what} vs plain on every head{note}: calc_diff {d:.3e} < {KERNEL_BAR}, max_abs "
+              f"{e:.3e}, lse {dl:.2e} < {LSE_BAR}, rows with no live key equal")
+
+    def block_sparse(B, Hm, Sq, Sk, live=0.3):
+        nb = -(-max(Sq, Sk) // 128)
+        blocks = torch.rand(B, Hm, nb, nb, generator=g, device="cuda") < live
+        m = blocks.repeat_interleave(128, 2).repeat_interleave(128, 3)[:, :, :Sq, :Sk]
+        m = m.contiguous()
+        m[..., 40:45] = True                       # a thin live stripe
+        m[..., :Sq // 3, Sk - 77:] = False         # a ragged dead corner
+        return m
+
+    # (label, B, Hq, Hk, S, Sk, causal, options, mask kind)
+    cases = [("window 40, sinks 3 far below the band", 1, 4, 2, 1000, 1000, True,
+              dict(window=40, sinks=3), None),
+             ("window 300 (mid-tile band), GQA 8/2", 1, 8, 2, 1100, 1100, True,
+              dict(window=300), None),
+             ("left-padded causal batch, first q block dead", 2, 4, 2, 1000, 1000, True, {},
+              "left pad"),
+             ("block-sparse per head (Hm = H)", 1, 4, 2, 900, 900, False, {}, "sparse H"),
+             ("block-sparse, one mask (Hm = 1), Sq 700 != Sk 1000", 1, 4, 2, 700, 1000, False, {},
+              "sparse 1")]
+    seg_cases = [("segments (300, 1, 250, 77) + pads, causal", (300, 1, 250, 77), True, {}),
+                 ("segments (400, 130, 200), window 150, per-segment sinks 4", (400, 130, 200),
+                  True, dict(window=150, sinks=4)),
+                 ("segments (333, 333), not causal", (333, 333), False, {})]
+    for D in (64, 128, 256):
+        for label, B, Hq, Hk, S, Sk, causal, opts, mkind in cases:
+            q = torch.randn(B, Hq, S, D, generator=g, device="cuda").bfloat16()
+            k, v = (torch.randn(B, Hk, Sk, D, generator=g, device="cuda").bfloat16()
+                    for _ in range(2))
+            kw = {}
+            if mkind == "left pad":
+                pad = torch.tensor([300, 0], device="cuda")
+                kw["attn_mask"] = (torch.arange(Sk, device="cuda")[None, None, None, :]
+                                   >= pad[:, None, None, None]).expand(B, 1, S, Sk).contiguous()
+            elif mkind:
+                kw["attn_mask"] = block_sparse(B, Hq if mkind == "sparse H" else 1, S, Sk)
+            mopt = dict(opts, masked="bool" if mkind else "none")
+            cfg = dataclasses.replace(flash_cfg(torch, D, causal, **mopt), emit_lse=True)
+            hold(f"B4 edge {label}, D={D}", (q, k, v, cfg), kw)
+            if D == 256:
+                continue
+            b1 = dataclasses.replace(attn_cfg(torch, "B1", D, causal), **mopt)
+            xs, fkw = fused_args(torch, q, k, v, True)
+            hold(f"B1 edge {label}, D={D}", (*xs, b1), {**fkw, **kw})
+        if D == 256:
+            continue
+        for label, lens, causal, opts in seg_cases:
+            S = 760
+            q, k, v = _edge_qkv(torch, g, 1, 4, 2, S, S, D)
+            qs, ks, sp = _segment_ids(torch, 1, S, lens)
+            seg = dict(q_segments=qs, kv_segments=ks, kv_segpos=sp if opts.get("sinks") else None)
+            for colk in (True, False):
+                cfg = dataclasses.replace(attn_cfg(torch, "B1", D, causal), segmented=True,
+                                          fold_k_scale=not colk, **opts)
+                xs, fkw = colk_args(torch, q, k, v) if colk else fused_args(torch, q, k, v, True)
+                hold(f"B1{'-colk' if colk else ''} edge {label}, D={D}", (*xs, cfg),
+                     {**fkw, **seg})
+    return max(errs)
+
+
+def run_masked_sm90(torch, st, totals):
+    """Phase 19 (slice 15): the masked forms' edge cases on their Hopper
+    kernels (phase 7 holds their launches on its paths' inputs to the plain
+    versions, times them, and times the skip ratios against dense B1 on its
+    Hopper kernel); the mask header's report lines come with
+    ``flash_sm90.cu``'s and ``attention_sm90.cu``'s after the build."""
+    err = masked_sm90_edges(torch)
+    print(f"     masked Hopper forms' edge cases: max_abs_err {err:.3e}", flush=True)
+    return []
+
 
 def attn_cfg(torch, name, D, causal):
     """The AttnConfig of launch key ``name``, as the pipeline builds it."""

@@ -4,17 +4,22 @@
 // at the tensor cores.  Unmasked (B4) at head dims 64, 128 and 256, with
 // an additive float bias (B4-float, the BIASED instantiations) at 64 and
 // 128, and with P rounded to e2m1 (B4-fp4, SageAttention3's simulation of
-// ops/lowbit.py; the FP4 instantiations) at 64, 128 and 256.
+// ops/lowbit.py; the FP4 instantiations) at 64, 128 and 256; and, in a
+// kernel of its own (flash_masked_kernel), with a causal sliding window
+// (sinks too) or a bool keep-mask (B4-window, B4-bool) at 64, 128 and 256.
 //
 // Replaces the Pallas kernel `_attn_kernel` (sageattention_tpu/ops/
 // attention.py:251, launched by `attention_call` with quantized=False) in
 // the configurations with no mask, window, segments or ring offsets, and
 // no bias, only a float one, or `p_sim_fp4` (its `_round_e2m1_tile`,
-// attention.py:235, applied at :547); the others stay on attention.cuh's
-// body (attention_ext.cu), as does the bias at D = 256, whose stages do
-// not fit.  What it computes, as the plain version (ops/attention.py
-// `attention_plain` at `flash_kv_tile(D)` columns, KV_TILE = 64 with a
-// bias or FP4):
+// attention.py:235, applied at :547), and in those with a window (`window`,
+// `sinks`: attention.py:398-412, :502-503, :611-619) or a bool mask (the
+// `minfo` tile table, :263, :427-434) and no segments; the others stay on
+// attention.cuh's body (attention_ext.cu), as does the bias at D = 256,
+// whose stages do not fit.  What it computes, as the plain version
+// (ops/attention.py `attention_plain` at `flash_kv_tile(D)` columns,
+// KV_TILE = 64 with a bias or FP4; the masks of the masked walk in its
+// order: the kv tail, causal and the band or its sinks, the bool mask):
 //   s = (q . k) * sm_scale * log2(e) in f32; the kv tail past kv_len and,
 //   under causal, col > row (top-left) masked; with a bias, each score
 //   s * fold rounded, then + bias * log2(e) rounded (the JAX kernel's
@@ -98,10 +103,29 @@
 //             steps where some lane's quotient lands near a midpoint, so
 //             no rounded value differs from the plain rule's on the
 //             kernel's own P.
+//   masks     flash_masked_kernel: each block walks its list of kv tiles
+//             (mask_sm90.cuh, the wrapper's table at BN = flash_kv_tile(D)
+//             columns, as the unmasked B4), so a W = 4096 window loads the
+//             band's and the sinks' tiles only and a block-sparse mask the
+//             live tiles only.  The products and the turns are B4's on every
+//             tile of the list; a warpgroup whose 64 rows are dead on a tile
+//             masks all of its scores (P = 0), one that is full runs B4's,
+//             and a partly live one masks per element from keep bits built a
+//             few columns at a time before the tile's products are issued (the bool mask's bytes read from global
+//             memory: a mask tile per stage would not fit beside three
+//             stages at D = 128, and partly live tiles are few, a left-pad
+//             edge; a 128 x 128 block-sparse mask cuts no 64-row slice of a
+//             128-column tile).  With a bool mask at D = 64 the blocks take
+//             two warpgroups (128 rows): a 128 x 128 block-sparse mask's 128
+//             rows then share their live tiles, where three warpgroups' 192
+//             rows walk the union of two mask rows' (~44% of the tiles
+//             against ~25%).  A kernel of its own, so that the other
+//             instantiations compile to what they were.
 // An exp2 split between the SFUs and the FMA pipes, stores through shared
 // memory, and a persistent grid are later work.
 #include <stdio.h>
 
+#include "mask_sm90.cuh"
 #include "sm90.cuh"
 
 namespace flash90 {
@@ -532,6 +556,246 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
   }
 }
 
+// The masked walk's parameters: B4's and the tile lists and masks.
+struct MParams {
+  Params p;
+  mask90::Masks mk;
+};
+
+// B4's configuration with NW warpgroups (64 query rows each) a block.
+template <int D, int NW>
+struct MCfg : Cfg<D> {
+  static constexpr int NWG = NW, BM = 64 * NW, THREADS = 128 * NW;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int SMEM = Q_BYTES + Cfg<D>::STAGES * 2 * Cfg<D>::KV_BYTES + 1024;
+};
+
+// The online softmax of a masked walk's tile for a live slice, in place:
+// softmax_tile's unmasked arithmetic, the scores of a partly live slice
+// (`cut`) first masked by the keep bits.
+template <int BN>
+__device__ __forceinline__ void softmax_masked(float (&sc)[BN / 2], float fold, bool cut,
+                                               uint32_t kA, uint32_t kB, float& mA, float& mB,
+                                               float& lA, float& lB, float& aA, float& aB) {
+  if (cut) mask90::apply_bits<BN>(sc, kA, kB);
+  float cA = -INFINITY, cB = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    cA = fmaxf(cA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    cB = fmaxf(cB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  cA = fmaxf(cA, __shfl_xor_sync(0xffffffffu, cA, 1));
+  cA = fmaxf(cA, __shfl_xor_sync(0xffffffffu, cA, 2));
+  cB = fmaxf(cB, __shfl_xor_sync(0xffffffffu, cB, 1));
+  cB = fmaxf(cB, __shfl_xor_sync(0xffffffffu, cB, 2));
+  cA = __fmul_rn(cA, fold);
+  cB = __fmul_rn(cB, fold);
+  const float nA = fmaxf(fmaxf(mA, cA), M_CLAMP);
+  const float nB = fmaxf(fmaxf(mB, cB), M_CLAMP);
+  aA = ex2(__fsub_rn(mA, nA));
+  aB = ex2(__fsub_rn(mB, nB));
+  mA = nA;
+  mB = nB;
+  float pA = 0.f, pB = 0.f;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    sc[4 * j] = ex2(__fmaf_rn(sc[4 * j], fold, -nA));
+    sc[4 * j + 1] = ex2(__fmaf_rn(sc[4 * j + 1], fold, -nA));
+    sc[4 * j + 2] = ex2(__fmaf_rn(sc[4 * j + 2], fold, -nB));
+    sc[4 * j + 3] = ex2(__fmaf_rn(sc[4 * j + 3], fold, -nB));
+    pA += sc[4 * j] + sc[4 * j + 1];
+    pB += sc[4 * j + 2] + sc[4 * j + 3];
+  }
+  lA = __fadd_rn(__fmul_rn(aA, lA), pA);
+  lB = __fadd_rn(__fmul_rn(aB, lB), pB);
+}
+
+// B4-window and B4-bool: flash_fwd_kernel<D, PLAIN> with NW warpgroups
+// walking the block's list of kv tiles (mp.mk) in place of 0 .. n_kt.
+// Grid (ceil(Sq / BM), Hq, B), MCfg<D, NW>::THREADS threads.
+template <int D, int NW>
+__global__ void __launch_bounds__(MCfg<D, NW>::THREADS, 1)
+    flash_masked_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, const MParams mp) {
+  using C = MCfg<D, NW>;
+  constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES, NWG = C::NWG;
+  const Params& p = mp.p;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  // q full, then per stage: k full, v full
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  __shared__ int freed[STAGES];  // per stage: warps done with its tile
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;  // the swizzle wants 1 KB
+  const uint32_t sK = sQ + C::Q_BYTES;             // stage s at sK + s * KV_BYTES
+  const uint32_t sV = sK + STAGES * C::KV_BYTES;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_k = smem_u32(&bars[1]);       // stage s at + 8 * s
+  const uint32_t bar_v = smem_u32(&bars[1 + STAGES]);
+
+  const int n_qt = (p.Sq + BM - 1) / BM;
+  const int qt = p.causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x;
+  const int hq = blockIdx.y, b = blockIdx.z;
+  const int hk = hq / (p.Hq / p.Hk);
+  const int q0 = qt * BM;
+  int n = 0;  // the walk's length
+  const int* lst = mask90::block_list(mp.mk, b, hq, p.Hq, n_qt, qt, n);
+
+  const int tid = threadIdx.x;
+  // K and V of the walk's tile i into stage i % STAGES
+  auto load_tile = [&](int i) {
+    const int s = i % STAGES, kt = mask90::tile_of((uint32_t)lst[i]);
+    mbar_expect_tx(bar_k + 8 * s, C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      tma_load4(sK + s * C::KV_BYTES + c * (BN * 128), &tm_k, bar_k + 8 * s, c * 64, kt * BN, hk,
+                b);
+    mbar_expect_tx(bar_v + 8 * s, C::KV_BYTES);
+#pragma unroll
+    for (int c = 0; c < CH; ++c)
+      tma_load4(sV + s * C::KV_BYTES + c * (BN * 128), &tm_v, bar_v + 8 * s, c * 64, kt * BN, hk,
+                b);
+  };
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      freed[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_q, C::Q_BYTES);
+#pragma unroll
+    for (int c = 0; c < CH; ++c) tma_load4(sQ + c * (BM * 128), &tm_q, bar_q, c * 64, q0, hq, b);
+    for (int i = 0; i < min(n, STAGES); ++i) load_tile(i);
+  }
+  __syncthreads();
+
+  const int cw = tid / 128;
+  const int lane = tid % 32, q4 = lane & 3;
+  const int rA = q0 + 64 * cw + 16 * ((tid % 128) / 32) + (lane >> 2), rB = rA + 8;
+  // the turns of flash_fwd_kernel: every warpgroup takes n + 1
+  auto take_turn = [&]() { asm volatile("bar.sync %0, 256;\n" ::"r"(1 + cw) : "memory"); };
+  auto hand_over = [&]() {
+    asm volatile("bar.arrive %0, 256;\n" ::"r"(1 + (cw + 1) % NWG) : "memory");
+  };
+  if (cw == NWG - 1 && n > 0) hand_over();
+  const uint32_t q_lo = desc_lo(sQ + cw * (64 * 128), 16);
+  auto release = [&](int i) {
+    __syncwarp();
+    if (lane == 0) {
+      const int s = i % STAGES;
+      __threadfence_block();
+      if (atomicAdd(&freed[s], 1) == 4 * NWG - 1) {
+        freed[s] = 0;
+        __threadfence_block();
+        if (i + STAGES < n) load_tile(i + STAGES);
+      }
+    }
+  };
+  // this slice's keep bits of the walk's tile in entry e: none where it is
+  // dead (its P is 0 and its alpha 1), all where it is full, else built
+  // per element, before the tile's products are issued while the S
+  // accumulators hold nothing.  Returns whether the tile is cut at all.
+  auto classify = [&](uint32_t e, uint32_t& kA, uint32_t& kB) {
+    const int cls = mask90::class_of(e, cw);
+    kA = kB = cls == 2 ? ~0u : 0u;
+    if (cls & 1)
+      mask90::keep_bits<BN>(mp.mk, b, hq, mask90::tile_of(e) * BN, p.kv_len, p.causal, p.Sq, rA,
+                            rB, q4, cls == 1, kA, kB);
+    return cls != 2;
+  };
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float mA = M_CLAMP, mB = M_CLAMP, lA = 0.f, lB = 0.f, aA, aB;
+  uint32_t pf[BN / 16][4];
+  mbar_wait(bar_q, 0);
+
+  uint32_t e = n > 0 ? (uint32_t)__ldg(lst) : 0u;  // the walk's entry i, read a tile ahead
+  if (n > 0) {
+    float sc[BN / 2];
+    uint32_t kA, kB;
+    const bool cut = classify(e, kA, kB);
+    mbar_wait(bar_k, 0);
+    take_turn();
+    wg_fence();
+    qk_issue<D, BM, BN>(sc, opaque(q_lo), opaque(desc_lo(sK, 16)));
+    hand_over();
+    const uint32_t en = n > 1 ? (uint32_t)__ldg(lst + 1) : 0u;
+    wg_wait<0>();
+    reg_fence(sc);
+    softmax_masked<BN>(sc, p.fold, cut, kA, kB, mA, mB, lA, lB, aA, aB);
+    pack_p<BN>(sc, pf);
+    e = en;
+  }
+  for (int i = 1; i < n; ++i) {
+    const int s = i % STAGES, ps = (i - 1) % STAGES;
+    float sc[BN / 2];
+    uint32_t kA, kB;
+    const bool cut = classify(e, kA, kB);
+    mbar_wait(bar_k + 8 * s, (i / STAGES) & 1);
+    mbar_wait(bar_v + 8 * ps, ((i - 1) / STAGES) & 1);
+    reg_fence(o);
+    reg_fence_u(pf);
+    take_turn();
+    wg_fence();
+    qk_issue<D, BM, BN>(sc, opaque(q_lo), opaque(desc_lo(sK + s * C::KV_BYTES, 16)));
+    wg_fence();
+    pv_issue<D, BN>(o, pf, opaque(desc_lo(sV + ps * C::KV_BYTES, BN * 128)));
+    hand_over();
+    const uint32_t en = i + 1 < n ? (uint32_t)__ldg(lst + i + 1) : 0u;
+    wg_wait<1>();
+    reg_fence(sc);
+    softmax_masked<BN>(sc, p.fold, cut, kA, kB, mA, mB, lA, lB, aA, aB);
+    wg_wait<0>();
+    reg_fence(o);
+    reg_fence_u(pf);
+    reg_fence(sc);
+    release(i - 1);
+    rescale<D>(o, aA, aB);
+    pack_p<BN>(sc, pf);
+    e = en;
+  }
+  if (n > 0) {  // the last PV product
+    const int ls = (n - 1) % STAGES;
+    mbar_wait(bar_v + 8 * ls, ((n - 1) / STAGES) & 1);
+    reg_fence(o);
+    reg_fence_u(pf);
+    take_turn();
+    wg_fence();
+    pv_issue<D, BN>(o, pf, opaque(desc_lo(sV + ls * C::KV_BYTES, BN * 128)));
+    if (cw < NWG - 1) hand_over();
+    wg_wait<0>();
+    reg_fence(o);
+    release(n - 1);
+  }
+
+  // ---------------- epilogue: O / l and the base-2 lse ----------------
+  lA += __shfl_xor_sync(0xffffffffu, lA, 1);
+  lA += __shfl_xor_sync(0xffffffffu, lA, 2);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 1);
+  lB += __shfl_xor_sync(0xffffffffu, lB, 2);
+  const float iA = __fdiv_rn(1.f, lA == 0.f ? 1.f : lA);
+  const float iB = __fdiv_rn(1.f, lB == 0.f ? 1.f : lB);
+  __nv_bfloat16* ob = p.o + b * p.o_sb + hq * p.o_sh;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * q4;
+    if (rA < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + rA * p.o_ss + c) =
+          __floats2bfloat162_rn(__fmul_rn(o[4 * j], iA), __fmul_rn(o[4 * j + 1], iA));
+    if (rB < p.Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + rB * p.o_ss + c) =
+          __floats2bfloat162_rn(__fmul_rn(o[4 * j + 2], iB), __fmul_rn(o[4 * j + 3], iB));
+  }
+  if (p.lse && q4 == 0) {
+    float* lse = p.lse + (long long)(b * p.Hq + hq) * p.Sq;
+    if (rA < p.Sq) lse[rA] = __fadd_rn(mA, log2f(fmaxf(lA, 1e-37f)));
+    if (rB < p.Sq) lse[rB] = __fadd_rn(mB, log2f(fmaxf(lB, 1e-37f)));
+  }
+}
+
 }  // namespace flash90
 
 // ------------------------------------------------------------------ host --
@@ -577,6 +841,26 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
   return (int)cudaGetLastError();
 }
 
+template <int D, int NW>
+int launch_masked(const void* q, const void* k, const void* v, const long long* st,
+                  const MParams& mp, int B, cudaStream_t stream) {
+  using C = MCfg<D, NW>;
+  const Params& p = mp.p;
+  if (mp.mk.nkt < (p.kv_len + C::BN - 1) / C::BN) return -1;
+  CUtensorMap mq, mk, mv;
+  const int kv_rows = p.kv_len > 0 ? p.kv_len : 1;  // an empty walk loads nothing
+  if (!make_map(&mq, q, D, p.Sq, p.Hq, B, st[2], st[1], st[0], C::BM) ||
+      !make_map(&mk, k, D, kv_rows, p.Hk, B, st[5], st[4], st[3], C::BN) ||
+      !make_map(&mv, v, D, kv_rows, p.Hk, B, st[8], st[7], st[6], C::BN))
+    return -2;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_masked_kernel<D, NW>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid((p.Sq + C::BM - 1) / C::BM, p.Hq, B);
+  flash_masked_kernel<D, NW><<<grid, C::THREADS, C::SMEM, stream>>>(mq, mk, mv, mp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -601,19 +885,29 @@ const char* sage_flash_error_string(int e) {
 // [B, Hm, Sq, Sk], Hm 1 or Hq, with element strides (batch, head, row), a
 // 16-byte aligned base and 16-byte multiples for every stride stepped over,
 // which may be 0 but the row stride; null for none), 2 B4-fp4 (P rounded
-// to e2m1; no bias).
+// to e2m1; no bias), 3 B4-window / B4-bool (flash_masked_kernel; no bias):
+// `tiles` and `ntiles` the blocks' lists of kv tiles (mask_sm90.cuh; rows
+// of `nkt` >= ceil(kv_len / bn) entries, `lb` / `lh` 1 where they step
+// over the batch / the q heads, blocks of `bm` query rows: 192 or 128 at
+// D = 64, 128 above), `mask` an int8 keep-mask [B, Hm, Sq, Sk]
+// with element strides (m_sb, m_sh, m_ss) and a unit column stride (`mh` 1
+// where Hm = Hq) or null, and the window and its sinks (0: none).
 int sage_flash_fwd(int D, int bn, int mode, const void* q, const void* k, const void* v, void* o,
                    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
                    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
                    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
                    const float* bias, long long b_sb, long long b_sh, long long b_ss, int Hm,
                    float* lse, int B, int Hq, int Hk, int Sq, int Sk, int kv_len, int causal,
-                   float fold, void* stream) {
+                   float fold, const int* tiles, const int* ntiles, int nkt, int lb, int lh,
+                   int bm, const int8_t* mask, long long m_sb, long long m_sh, long long m_ss, int mh,
+                   int window, int sinks, void* stream) {
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * 2) % 16) return -1;
   if (B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 || kv_len > Sk || !(fold > 0.f)) return -1;
-  if ((mode != PLAIN && mode != FP4) || (mode == FP4 && bias)) return -1;
+  const bool masked = mode == 3;
+  if ((mode != PLAIN && mode != FP4 && !masked) || (mode != PLAIN && bias)) return -1;
+  if (masked && (!tiles || !ntiles || window < 0 || sinks < 0 || (window && !causal))) return -1;
   const Bias bs = {bias, b_sb, b_sh, b_ss, Hm, Sk};
   if (bias && (reinterpret_cast<uintptr_t>(bias) % 16 || (Hm != 1 && Hm != Hq) ||
                b_sb < 0 || b_sh < 0 || (B > 1 && (b_sb * 4) % 16) ||
@@ -627,6 +921,17 @@ int sage_flash_fwd(int D, int bn, int mode, const void* q, const void* k, const 
   p.Hq = Hq; p.Hk = Hk; p.Sq = Sq; p.kv_len = kv_len; p.causal = causal;
   p.fold = fold;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (masked) {
+    const MParams mp = {p, {tiles, ntiles, nkt, lb, lh, mask, m_sb, m_sh, m_ss, mh, nullptr,
+                            nullptr, nullptr, window, sinks, Sk}};
+    if (D == 64 && bn == Cfg<64>::BN && bm == 192) return launch_masked<64, 3>(q, k, v, st, mp, B, s);
+    if (D == 64 && bn == Cfg<64>::BN && bm == 128) return launch_masked<64, 2>(q, k, v, st, mp, B, s);
+    if (D == 128 && bn == Cfg<128>::BN && bm == 128)
+      return launch_masked<128, 2>(q, k, v, st, mp, B, s);
+    if (D == 256 && bn == Cfg<256>::BN && bm == 128)
+      return launch_masked<256, 2>(q, k, v, st, mp, B, s);
+    return -1;
+  }
   if (bias) {
     if (D == 64 && bn == Cfg<64, BIASED>::BN) return launch<64, BIASED>(q, k, v, st, bs, p, B, s);
     if (D == 128 && bn == Cfg<128, BIASED>::BN)

@@ -44,14 +44,23 @@ _ATTN_RING_ARGS = _ATTN_ARGS[:-1] + [_P, _P, _P]
 # scales, window, sinks
 _ATTN_EXT_ARGS = _ATTN_ARGS[:-1] + [_P, _P] + [_LL] * 3 + [_I] + [_P] * 8 + [_I, _I, _P]
 
+# the masked forms' arguments of flash_sm90.cu and attention_sm90.cu: (tile
+# lists, their lengths), (row length, per batch, per head, block rows),
+# (mask, 3 mask strides, per head)
+_TILE_ARGS = [_P, _P, _I, _I, _I, _I, _P, _LL, _LL, _LL, _I]
+
 # (D, kv tile, mode), (q, k, v, o), 12 strides, (bias, 3 bias strides, Hm),
-# lse, (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
+# lse, (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, the tile lists and mask,
+# (window, sinks), stream
 _FLASH_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 12 + [_P] + [_LL] * 3 + [_I] + [_P] + [_I] * 7
-               + [_F, _P])
+               + [_F] + _TILE_ARGS + [_I] * 2 + [_P])
 
 # D, (q, k, v, o), 12 strides, (k_head_scale, kn_max, v_scale, v_mean, lse,
-# lmin), (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
-_ATTN_SM90_ARGS = [_I] + [_P] * 4 + [_LL] * 12 + [_P] * 6 + [_I] * 7 + [_F, _P]
+# lmin), (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, (k_scale, 2 strides,
+# columns), the tile lists and mask, (q/kv segment ids, kv_segpos), (window,
+# sinks), stream
+_ATTN_SM90_ARGS = ([_I] + [_P] * 4 + [_LL] * 12 + [_P] * 6 + [_I] * 7 + [_F] + [_P, _LL, _LL, _I]
+                   + _TILE_ARGS + [_P] * 3 + [_I] * 2 + [_P])
 
 # (D, mode), (q, k, v, o), 12 strides, q_scale, (k_scale, 2 strides,
 # columns), (kn_max, v_scale, v_mean, lse, offsets, kv_true), (B, Hq, Hk,

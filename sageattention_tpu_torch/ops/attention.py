@@ -9,12 +9,16 @@ configurations, by their launch key (``config_name``):
                  bf16 Q at head dims 64 and 128 runs
                  ``csrc/attention_sm90.cu`` (TMA, int8 wgmma, warpgroups
                  taking turns; :func:`b1_sm90_route`), on V codes widened to
-                 bf16 (:func:`widen_v_codes`)
+                 bf16 (:func:`widen_v_codes`), and so do its window, bool-mask
+                 and segment forms (each block walking its list of kv tiles,
+                 :func:`tile_list`), per-column K scales (``-colk``) too
   B3 / B3-online fused Q with bf16 compute (short sequences), int8 V
   B4             quantized=False: the bf16 flash baseline; with no mask,
                  window or segments it runs ``csrc/flash_sm90.cu`` (TMA,
                  wgmma, warpgroups taking turns), whose kv tiles are
-                 ``flash_kv_tile(D)`` wide, and so does ``B4-float`` (a
+                 ``flash_kv_tile(D)`` wide, and so do ``B4-window`` and
+                 ``B4-bool`` (a window or a bool mask, no segments: each
+                 block walks its list of kv tiles) and ``B4-float`` (a
                  float bias and no other option) at head dims 64 and 128,
                  on 64-column tiles (:func:`flash_sm90_route`)
   B4-fp4         the same with ``p_sim_fp4``: each 64-column P tile rounded
@@ -65,8 +69,8 @@ tile within rounding of those.  Unlike the TPU kernel, the inputs
 need no padding to the block sizes: the CUDA kernel masks the ragged edges
 itself and picks its own tiles, so ``block_q``/``block_k``/
 ``block_k_inner`` are accepted and ignored, and the online softmax walks
-64-column kv tiles (the unmasked B4 on ``flash_sm90.cu``:
-``flash_kv_tile(D)`` columns).
+64-column kv tiles (B4 on ``flash_sm90.cu``, but for its bias and FP4
+forms: ``flash_kv_tile(D)`` columns).
 ``lmin`` comes back as ``[B, Hq, ceil(Sq/64)]``, one minimum row
 denominator per 64-row query tile.
 
@@ -211,31 +215,43 @@ def flash_sm90_route(cfg: AttnConfig, rows: int, D: int) -> bool:
     """True for the launches that ``csrc/flash_sm90.cu`` runs: the bf16
     flash baseline (``quantized=False``) with no ring offsets or device
     length, either with no mask, segments, window or row K scales (B4 and,
-    with ``p_sim_fp4``, B4-fp4, head dims 64, 128 and 256) or with a float
-    bias and none of the others (B4-float, head dims 64 and 128: at 256 its
-    stages do not fit).  Every other B4 form stays on ``attention.cuh``'s
+    with ``p_sim_fp4``, B4-fp4, head dims 64, 128 and 256), with a window
+    (sinks too) or a bool mask and no segments (B4-window, B4-bool: the
+    MASKED mode, head dims 64, 128 and 256), or with a float bias and none
+    of the others (B4-float, head dims 64 and 128: at 256 its stages do not
+    fit).  Every other B4 form (segments) stays on ``attention.cuh``'s
     body."""
     if cfg.quantized or is_ring(cfg, rows):
         return False
     if not _extended(cfg):
         return True
-    return (cfg.masked == "float" and not (cfg.segmented or cfg.window or cfg.fuse_k_rows)
-            and D in (64, 128))
+    if cfg.segmented or cfg.fuse_k_rows:
+        return False
+    return cfg.masked != "float" or (not cfg.window and D in (64, 128))
+
 
 
 def b1_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
     """True for the launches that ``csrc/attention_sm90.cu`` runs: B1 (the
-    static fused-Q int8 forward with int8 V, no mask, window, segments or
-    ring offsets) and B-pvbf16 in the same configuration (V in bf16 with no
-    scale or mean, native compute) on a bf16 Q at head dims 64 and 128.  B1
-    or B-pvbf16 at D = 256 or with an f32/f16 Q, B-pvbf16 with bf16 compute
-    or a V mean, its online rerun, and every other configuration stay on
+    static fused-Q int8 forward with int8 V and no ring offsets), with no
+    option or a window, a bool mask or segments (``B1-window``,
+    ``B1-bool``, ``B1-colk-seg``, ``B1-colk-seg-window``, ...), and
+    B-pvbf16 with no option (V in bf16 with no scale or mean, native
+    compute) on a bf16 Q at head dims 64 and 128.  B1 or B-pvbf16 at D =
+    256 or with an f32/f16 Q, B-pvbf16 with bf16 compute or a V mean, the
+    online reruns (B2, B2-bool, ...), and every other configuration stay on
     ``attention.cuh``'s body.  ``cfg`` must be one :func:`config_name`
     takes."""
     if D not in (64, 128) or q_dtype != torch.bfloat16:
         return False
     name = config_name(cfg, rows)
-    return name == "B1" or (name == "B-pvbf16" and cfg.fuse_q_quant and _bf16_v_native(cfg))
+    if name == "B1" or (name == "B-pvbf16" and cfg.fuse_q_quant and _bf16_v_native(cfg)):
+        return True
+    # the options of the masked kernel: a window, a bool mask or segments,
+    # folded or per-column K scales; no float bias, row K scales, or bool
+    # mask with segments
+    return (_base_name(cfg) == "B1" and _extended(cfg) and cfg.masked != "float"
+            and not cfg.fuse_k_rows and not (cfg.masked == "bool" and cfg.segmented))
 
 
 def _bf16_v_native(cfg: AttnConfig) -> bool:
@@ -282,10 +298,115 @@ def flash_kv_tile(D: int) -> int:
     ``D`` (its BN): 128 up to D = 128, 64 at D = 256, where Q and two K and
     V stages must fit the 227 KB of shared memory.  B4's bf16 P is rounded
     per tile against the running max, so the plain version walks the same
-    tiles.  With a bias (B4-float) or FP4 rounding (B4-fp4, whose scale is
-    each tile's row max, as JAX's 64-wide tiles take it) the kernel walks
-    ``KV_TILE``."""
+    tiles (B4-window and B4-bool too).  With a bias (B4-float) or FP4
+    rounding (B4-fp4, whose scale is each tile's row max, as JAX's 64-wide
+    tiles take it) the kernel walks ``KV_TILE``."""
     return 128 if D <= 128 else 64
+
+
+def _plain_kv_tile(cfg: AttnConfig, rows: int, D: int) -> int:
+    """The kv tile of the kernel that runs ``cfg``, which the plain
+    version's online softmax walks: ``flash_kv_tile(D)`` on
+    ``flash_sm90.cu`` but for its bias and FP4 forms, else ``KV_TILE``."""
+    if flash_sm90_route(cfg, rows, D) and cfg.masked != "float" and not cfg.p_sim_fp4:
+        return flash_kv_tile(D)
+    return KV_TILE
+
+
+SM90_SLICE = 64       # query rows of a warpgroup of the Hopper forwards: a tile class each
+SM90_KV_TILE = 128    # kv columns of a tile of attention_sm90.cu
+
+
+def sm90_block_rows(D: int, cfg: AttnConfig | None = None) -> int:
+    """Query rows of one block of ``flash_sm90.cu`` and
+    ``attention_sm90.cu`` at head dim ``D``: three 64-row warpgroups at D =
+    64, two above; with a bool mask (``cfg.masked == "bool"``) two at D = 64
+    too, so that a 128 x 128 block-sparse mask's rows share a block's list
+    of live tiles (three warpgroups' 192 rows walk two mask rows' union)."""
+    if D == 64 and not (cfg is not None and cfg.masked == "bool"):
+        return 3 * SM90_SLICE
+    return 2 * SM90_SLICE
+
+
+def _classes(dead, full):
+    """0 where ``dead``, 2 where ``full``, 1 between (uint8)."""
+    return torch.where(dead, 0, torch.where(full, 2, 1)).to(torch.uint8)
+
+
+def tile_classes(cfg: AttnConfig, Sq: int, Sk: int, bn: int, q_segments=None,
+                 kv_segments=None, kv_segpos=None, attn_mask=None,
+                 device=None) -> torch.Tensor:
+    """``[B|1, Hm|1, ceil(Sq/64), ceil(Sk/bn)]`` uint8: for each 64-row query
+    slice and ``bn``-column kv tile, 0 where the masks keep no score of the
+    pair, 2 where they keep every score (no mask to apply), 1 or 3 between:
+    3 where only the rows' and columns' positions cut the pair (the kv
+    tail, causal, the band and global sinks: the kernels mask it from
+    arithmetic alone), 1 where segment ids, per-segment sinks or the bool
+    mask's bytes must be read.  One class per mask, then the plain version's
+    rule over them: the kv tail and causal, the window band or its sinks,
+    segments (the ids' ranges of :func:`segment_tile_ranges`; per-segment
+    sinks from :func:`segment_sink_tiles`), the bool mask
+    (:func:`mask_tile_table`'s 64x64 table, two of its tiles a 128-column
+    one); the least class of what must hold, the greatest of the band and
+    its sinks.  A class short of exact is partly live (its masks are applied
+    per element).  On ``device`` (by default the CPU)."""
+    dev = device
+    kv_len = cfg.kv_len or Sk
+    n64, nkt = -(-Sq // SM90_SLICE), -(-Sk // bn)
+    r0 = torch.arange(n64, device=dev)[:, None] * SM90_SLICE
+    rl = torch.clamp_max(r0 + SM90_SLICE - 1, Sq - 1)
+    k0 = torch.arange(nkt, device=dev)[None, :] * bn
+    k1 = k0 + bn - 1
+    c = _classes(k0 >= kv_len, k1 < kv_len).expand(n64, nkt)
+    if cfg.causal:
+        c = torch.minimum(c, _classes(k0 > rl, k1 <= r0))
+    data = torch.zeros((), dtype=torch.bool, device=dev)   # a cut only data can say
+    if cfg.window:
+        W = cfg.window
+        band = _classes(k1 < r0 - (W - 1), k0 >= rl - (W - 1))
+        if cfg.sinks and cfg.segmented:
+            held = segment_sink_tiles(kv_segpos, cfg.sinks, bn)[:, None, :]   # [B, 1, nkt]
+            data = (held == 1) & (band < 2)         # kv_segpos decides within the tile
+            band = torch.maximum(band, held)        # a sink tile: partly live at most
+        elif cfg.sinks:
+            band = torch.maximum(band, _classes(k0 >= cfg.sinks, k1 < cfg.sinks))
+        c = torch.minimum(c, band)
+    c, data = c.reshape((-1, 1) + c.shape[-2:]), data.reshape((-1, 1) + data.shape[-2:])
+    if cfg.segmented:
+        qr = segment_tile_ranges(q_segments, SM90_SLICE)[:, :, None]   # [B, n64, 1, 2]
+        kr = segment_tile_ranges(kv_segments, bn)[:, None]              # [B, 1, nkt, 2]
+        qlo, qhi, klo, khi = qr[..., 0], qr[..., 1], kr[..., 0], kr[..., 1]
+        seg = _classes((qhi < klo) | (qlo > khi), (qlo == qhi) & (klo == khi) & (qlo == klo))
+        c, data = torch.minimum(c, seg[:, None]), data | (seg[:, None] == 1)
+    if cfg.masked == "bool":
+        t = mask_tile_table(attn_mask)                       # [B, Hm, n64, ceil(Sk/64)]
+        per = bn // KV_TILE
+        pad = nkt * per - t.shape[-1]
+        lo = torch.nn.functional.pad(t, (0, pad), value=0).view(*t.shape[:3], nkt, per)
+        hi = torch.nn.functional.pad(t, (0, pad), value=2).view(*t.shape[:3], nkt, per)
+        tb = _classes(lo.amax(-1) == 0, hi.amin(-1) == 2)
+        c, data = torch.minimum(c, tb), data | (tb == 1)
+    return torch.where((c == 1) & ~data, 3, c).to(torch.uint8).contiguous()
+
+
+def tile_list(classes: torch.Tensor, nwg: int):
+    """The blocks' walks of ``nwg`` 64-row slices each, from ``classes``
+    (:func:`tile_classes`): ``(tiles [B', H', n_blocks, nkt] int32, counts
+    [B', H', n_blocks] int32)``.  Row ``tiles[..., i, :]`` holds, first and
+    in order, the ``counts[..., i]`` kv tiles where some slice of block i is
+    live, each entry the tile's index in its low 24 bits and slice w's
+    class in bits ``24 + 2 w`` (the kernels' ``mask_sm90.cuh``)."""
+    Bl, Hl, n64, nkt = classes.shape
+    nb = -(-n64 // nwg)
+    c = torch.nn.functional.pad(classes, (0, 0, 0, nb * nwg - n64)).view(Bl, Hl, nb, nwg, nkt)
+    c = c.to(torch.int32)
+    packed = torch.arange(nkt, dtype=torch.int32, device=c.device).expand(Bl, Hl, nb, nkt)
+    for w in range(nwg):
+        packed = packed | (c[:, :, :, w] << (24 + 2 * w))
+    live = (c > 0).any(3)
+    order = torch.argsort((~live).to(torch.int32), dim=-1, stable=True)
+    return (packed.gather(-1, order).contiguous(),
+            live.sum(-1, dtype=torch.int32).contiguous())
 
 
 def _check_options(cfg: AttnConfig) -> None:
@@ -579,8 +700,8 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     exact int8 QK^T (an f32 product of int8 codes is exact for D <= 256 with
     TF32 off), P summed into l as the kernel rounds it (unrounded f32 for a
     bf16 P, the codes for int8/e4m3 P), P times V with f32 sums, and the
-    online softmax over the kernel's kv tiles (64 columns, or
-    ``flash_kv_tile(D)`` on ``flash_sm90.cu``'s unmasked route).  A kv tile that
+    online softmax over the kernel's kv tiles (:func:`_plain_kv_tile`: 64
+    columns, or ``flash_kv_tile(D)`` on ``flash_sm90.cu``).  A kv tile that
     the kernel skips (dead under a mask or below a window) holds only masked
     scores here, which changes no running sum, so both agree exactly.
     ``q_segments [B,Sq]``, ``kv_segments``/``kv_segpos [B,Sk]``,
@@ -593,9 +714,7 @@ def attention_plain(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     Sk = k.shape[2]
     static = cfg.softmax_mode == "static"
     p_mode = "fp4" if cfg.p_sim_fp4 else "bf16" if cfg.p_bf16 else cfg.pv_dtype
-    # the kernel's kv tile: 64 but on flash_sm90.cu's unmasked B4
-    tile = (flash_kv_tile(D) if flash_sm90_route(cfg, Sq, D) and cfg.masked == "none"
-            and not cfg.p_sim_fp4 else KV_TILE)
+    tile = _plain_kv_tile(cfg, Sq, D)   # the kernel's kv tile
     qop, qse, cap = _prepare_q(q, cfg, name, k_head_scale, kn_max, q_scale)
     kf = _per_q_head(k, Hq).float()
     vf = _per_q_head(_v_operand(v, cfg.pv_dtype if cfg.quantized else "bf16"), Hq)
@@ -673,17 +792,34 @@ def mask_tile_table(attn_mask: torch.Tensor, bq: int = Q_TILE, bk: int = KV_TILE
     skips its loads and compute; JAX's ``minfo`` table at its own blocks),
     2 where it keeps every score (the kernel reads no mask), 1 in between
     (a tile cut by the mask's edge counts as 1 at most).  One read of the
-    mask: kept scores are counted per tile row, then per tile."""
-    m = attn_mask.view(torch.int8) if attn_mask.dtype == torch.bool else (
-        attn_mask != 0).to(torch.int8)
+    mask: each column's keeps over a tile's ``bq`` rows (``bq`` < 256, a
+    byte each: summed 8 columns a word where the mask's layout lets it be
+    read as int64, since no byte lane can carry), then the least and
+    greatest count over the tile's ``bk`` columns."""
+    m = (attn_mask if attn_mask.dtype == torch.bool else attn_mask != 0).view(torch.uint8)
     B, Hm, Sq, Sk = m.shape
-    nq, nk_full = -(-Sq // bq), Sk // bk
-    counts = [m[..., :nk_full * bk].unfold(-1, bk, bk).sum(-1, dtype=torch.int32)]
-    if Sk % bk:
-        counts.append(m[..., nk_full * bk:].sum(-1, keepdim=True, dtype=torch.int32))
-    c = torch.nn.functional.pad(torch.cat(counts, -1), (0, 0, 0, nq * bq - Sq))
-    c = c.view(B, Hm, nq, bq, -1).sum(3)
-    return ((c > 0).to(torch.uint8) + (c == bq * bk).to(torch.uint8)).contiguous()
+    nq_full, nk_full = Sq // bq, Sk // bk
+    counts = []
+    if nq_full:
+        x = m.narrow(2, 0, nq_full * bq).unflatten(2, (nq_full, bq))
+        try:
+            counts.append(x.view(torch.int64).sum(3).view(torch.uint8))
+        except RuntimeError:   # a layout that an 8-byte view cannot read
+            counts.append(x.sum(3, dtype=torch.int32).to(torch.uint8))
+    if Sq % bq:   # a tile cut by the mask's last row is never full: count at most bq - 1
+        counts.append(m.narrow(2, nq_full * bq, Sq % bq).sum(2, keepdim=True, dtype=torch.int32)
+                      .to(torch.uint8))
+    c = torch.cat(counts, 2)                            # [B, Hm, nq, Sk]
+    lo, hi = [], []
+    if nk_full:
+        a, b = torch.aminmax(c.narrow(3, 0, nk_full * bk).unflatten(3, (nk_full, bk)), dim=4)
+        lo.append(a)
+        hi.append(b)
+    if Sk % bk:   # a tile cut by the mask's edge is never full
+        hi.append(c.narrow(3, nk_full * bk, Sk % bk).amax(3, keepdim=True))
+        lo.append(torch.zeros_like(hi[-1]))
+    lo, hi = torch.cat(lo, 3), torch.cat(hi, 3)
+    return ((hi > 0).to(torch.uint8) + (lo == bq).to(torch.uint8)).contiguous()
 
 
 def segment_sink_tiles(kv_segpos: torch.Tensor, sinks: int, bk: int = KV_TILE) -> torch.Tensor:
@@ -721,8 +857,9 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
                      q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None,
                      offsets=None, kv_true=None):
     """Launch the kernel for ``cfg`` on CUDA tensors: ``csrc/flash_sm90.cu``
-    (the unmasked, the biased and the FP4 flash, :func:`flash_sm90_route`),
-    ``csrc/attention_sm90.cu`` (B1 and the fused-Q B-pvbf16 on a bf16 Q,
+    (the unmasked, windowed, bool-masked, biased and FP4 flash,
+    :func:`flash_sm90_route`), ``csrc/attention_sm90.cu`` (B1, its window,
+    bool and segment forms, and the fused-Q B-pvbf16 on a bf16 Q,
     :func:`b1_sm90_route`), ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8,
     B-pvbf16 and their B10 forms, :func:`q8_sm90_route`),
     ``csrc/attention.cu`` (fused Q) or ``attention_q8.cu`` (pre-quantized
@@ -735,14 +872,14 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     if D not in (64, 128, 256):
         raise ValueError(f"the attention kernel takes head_dim 64/128/256 (pad first), got {D}")
     if flash_sm90_route(cfg, Sq, D):
-        out, lse = _flash_sm90(q, k, v, cfg, v_mean,
-                               attn_mask if cfg.masked == "float" else None)
+        out, lse = _flash_sm90(q, k, v, cfg, v_mean, attn_mask)
         attention_call.launches[name] += 1
         if out.dtype != cfg.out_dtype:
             out = out.to(cfg.out_dtype)
         return out, lse, None
     if b1_sm90_route(cfg, Sq, D, q.dtype):
-        out, lse, lmin = _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean)
+        out, lse, lmin = _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean, k_scale,
+                                  q_segments, kv_segments, kv_segpos, attn_mask)
         attention_call.launches[name] += 1
         if out.dtype != cfg.out_dtype:
             out = out.to(cfg.out_dtype)
@@ -870,12 +1007,43 @@ def _tma_bias(m):
     return buf.expand(B, Hm, Sq, Sk)
 
 
-def _flash_sm90(q, k, v, cfg, v_mean, bias=None):
-    """Launch ``csrc/flash_sm90.cu`` (B4, B4-float and B4-fp4 on
-    :func:`flash_sm90_route`): ``(out bf16, lse_base2 | None)``.  Any
-    strides with a unit column stride load as they are (HND, NHD, sliced
-    heads); ``bias`` is B4-float's ``attn_mask`` (see :func:`_tma_bias`).
-    The entry takes the mode (2: FP4) and the plain version's kv tile."""
+_NO_MASK_ARGS = (None, None, 0, 0, 0, 0, None, 0, 0, 0, 0)
+
+
+def _mask_args(cfg, Sq, Sk, bn, D, q_segments, kv_segments, kv_segpos, attn_mask, device):
+    """The masked forms' launch arguments of ``flash_sm90.cu`` and
+    ``attention_sm90.cu`` (``_build._TILE_ARGS``): the blocks' tile lists
+    and their lengths (:func:`tile_list` over :func:`tile_classes` at ``bn``
+    columns and the kernel's blocks), the list's row length, whether it
+    steps over batch and heads, the block rows (:func:`sm90_block_rows`),
+    and the bool mask (its bytes as int8, read in place: no alignment
+    needed, a copy only for a column stride other than 1), its strides and
+    whether it steps over heads; then the tensors to hold until the
+    launch."""
+    m = keep = None
+    if cfg.masked == "bool":
+        keep = attn_mask if attn_mask.dtype == torch.bool else attn_mask != 0
+        if keep.stride(-1) != 1:
+            keep = keep.contiguous()
+        m = keep.view(torch.int8)
+    cls = tile_classes(cfg, Sq, Sk, bn, q_segments, kv_segments, kv_segpos, keep, device)
+    bm = sm90_block_rows(D, cfg)
+    tiles, counts = tile_list(cls, bm // SM90_SLICE)
+    margs = ((None, 0, 0, 0, 0) if m is None else
+             (m.data_ptr(), *m.stride()[:3], int(m.shape[1] > 1)))
+    args = (tiles.data_ptr(), counts.data_ptr(), tiles.shape[-1], int(tiles.shape[0] > 1),
+            int(tiles.shape[1] > 1), bm, *margs)
+    return args, (tiles, counts, m)
+
+
+def _flash_sm90(q, k, v, cfg, v_mean, attn_mask=None):
+    """Launch ``csrc/flash_sm90.cu`` (B4, B4-window, B4-bool, B4-float and
+    B4-fp4 on :func:`flash_sm90_route`): ``(out bf16, lse_base2 | None)``.
+    Any strides with a unit column stride load as they are (HND, NHD,
+    sliced heads); ``attn_mask`` is B4-float's bias (see :func:`_tma_bias`)
+    or B4-bool's keep-mask (see :func:`_mask_args`).  The entry takes the
+    mode (2: FP4, 3: the MASKED walk of a window or a bool mask) and the
+    plain version's kv tile."""
     if v_mean is not None:
         raise ValueError("the flash kernel takes no v_mean")
     if not cfg.sm_scale > 0:
@@ -886,18 +1054,23 @@ def _flash_sm90(q, k, v, cfg, v_mean, bias=None):
     out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if cfg.emit_lse else None)
-    tile, bias_args = flash_kv_tile(D), (None, 0, 0, 0, 1)
-    if bias is not None:
-        bias = _tma_bias(bias)
-        tile, bias_args = KV_TILE, (bias.data_ptr(), *bias.stride()[:3], bias.shape[1])
-    if cfg.p_sim_fp4:
-        tile = KV_TILE
-    _build.call("sage_flash_fwd", q.device, D, tile, 2 if cfg.p_sim_fp4 else 0, q.data_ptr(),
+    tile, bias_args, mode = _plain_kv_tile(cfg, Sq, D), (None, 0, 0, 0, 1), 0
+    mask_args, held = _NO_MASK_ARGS, None
+    if cfg.masked == "float":
+        bias = _tma_bias(attn_mask)
+        bias_args = (bias.data_ptr(), *bias.stride()[:3], bias.shape[1])
+    elif _extended(cfg):
+        mode = 3
+        mask_args, held = _mask_args(cfg, Sq, Sk, tile, D, None, None, None, attn_mask,
+                                     q.device)
+    elif cfg.p_sim_fp4:
+        mode = 2
+    _build.call("sage_flash_fwd", q.device, D, tile, mode, q.data_ptr(),
                 k.data_ptr(), v.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
                 *v.stride()[:3], *out.stride()[:3], *bias_args,
                 None if lse is None else lse.data_ptr(),
                 B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
-                _F32(cfg.sm_scale * LOG2E))
+                _F32(cfg.sm_scale * LOG2E), *mask_args, cfg.window, cfg.sinks)
     return out, lse
 
 
@@ -936,13 +1109,15 @@ def transpose_v_codes(v):
     return out.view(v.dtype)
 
 
-def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
-    """Launch ``csrc/attention_sm90.cu`` (B1 and B-pvbf16 on
-    :func:`b1_sm90_route`): ``(out bf16, lse_base2 | None, lmin)``.  ``q``
-    bf16 with any strides of unit column stride, ``k`` int8 codes, ``v``
-    int8 codes (B1) or float (B-pvbf16: rounded to bf16, its null
-    ``v_scale`` selects the kernel's bf16-V form), the scales as
-    :func:`attention_call` takes them."""
+def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean, k_scale=None,
+             q_segments=None, kv_segments=None, kv_segpos=None, attn_mask=None):
+    """Launch ``csrc/attention_sm90.cu`` (B1, its masked forms and B-pvbf16
+    on :func:`b1_sm90_route`): ``(out bf16, lse_base2 | None, lmin)``.
+    ``q`` bf16 with any strides of unit column stride, ``k`` int8 codes,
+    ``v`` int8 codes (B1) or float (B-pvbf16: rounded to bf16, its null
+    ``v_scale`` selects the kernel's bf16-V form), the scales, segment ids
+    and mask as :func:`attention_call` takes them (``-colk``: per-column
+    ``k_scale`` and no ``k_head_scale``, see :func:`_tma_cols`)."""
     bf16_v = cfg.pv_dtype == "bf16"
     if k.dtype != torch.int8 or (v.dtype == torch.int8) == bf16_v:
         raise TypeError("B1 takes int8 K and V codes, B-pvbf16 int8 K codes and a float V")
@@ -957,16 +1132,23 @@ def _b1_sm90(q, k, v, cfg, k_head_scale, kn_max, v_scale, v_mean):
            if cfg.emit_lse else None)
     lmin = torch.empty((B, Hq, -(-Sq // Q_TILE)), dtype=torch.float32, device=q.device)
     # contiguous f32 copies, each held by a name until the launch
-    ks = k_head_scale.float().reshape(B * Hk).contiguous()
+    ks = None if k_head_scale is None else k_head_scale.float().reshape(B * Hk).contiguous()
     knm = _per_q_head(kn_max.float().reshape(B, -1, 1, 1), Hq).reshape(B * Hq).contiguous()
     vs = None if bf16_v else v_scale.float().reshape(B * Hk * D).contiguous()
     vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
+    kc = None if k_scale is None else _tma_cols(k_scale.float().reshape(B, Hk, Sk))
+    kc_args = (None, 0, 0, 1) if kc is None else (kc.data_ptr(), *kc.stride()[:2], Sk)
+    mask_args, held = _NO_MASK_ARGS, None
+    if _extended(cfg):
+        mask_args, held = _mask_args(cfg, Sq, Sk, SM90_KV_TILE, D, q_segments, kv_segments,
+                                     kv_segpos, attn_mask, q.device)
     ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     _build.call("sage_attn_fwd_sm90", q.device, D, q.data_ptr(), k.data_ptr(), vb.data_ptr(),
                 out.data_ptr(), *q.stride()[:3], *k.stride()[:3], *vb.stride()[:3],
-                *out.stride()[:3], ks.data_ptr(), knm.data_ptr(), ptr(vs), ptr(vm), ptr(lse),
+                *out.stride()[:3], ptr(ks), knm.data_ptr(), ptr(vs), ptr(vm), ptr(lse),
                 lmin.data_ptr(), B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal),
-                _F32(cfg.sm_scale * LOG2E))
+                _F32(cfg.sm_scale * LOG2E), *kc_args, *mask_args, ptr(q_segments),
+                ptr(kv_segments), ptr(kv_segpos), cfg.window, cfg.sinks)
     return out, lse, lmin
 
 

@@ -149,10 +149,10 @@ def _route_configs():
 def test_route_takes_exactly_the_unmasked_flash():
     """``flash_sm90_route`` is a function of the configuration, the rows and
     the head dim: it takes exactly the configurations whose launch key is
-    ``B4`` (no mask, bias, window or segments) or ``B4-fp4`` (the same with
-    e2m1 rounding) at every head dim, and ``B4-float`` (a float bias alone)
-    at head dims 64 and 128; none of B4-bool/-window/-seg, the quantized
-    ones or the ring's."""
+    ``B4`` (no mask, bias, window or segments), ``B4-fp4`` (the same with
+    e2m1 rounding), ``B4-window`` and ``B4-bool`` (its masked walk) at every
+    head dim, and ``B4-float`` (a float bias alone) at head dims 64 and 128;
+    none of the B4 segment forms, the quantized ones or the ring's."""
     seen = set()
     for cfg in _route_configs():
         try:
@@ -162,7 +162,8 @@ def test_route_takes_exactly_the_unmasked_flash():
         seen.add(name)
         for D in (64, 128, 256):
             assert tatt.flash_sm90_route(cfg, 512, D) == (
-                name in ("B4", "B4-fp4") or (name == "B4-float" and D <= 128)), (name, D)
+                name in ("B4", "B4-fp4", "B4-window", "B4-bool")
+                or (name == "B4-float" and D <= 128)), (name, D)
     assert {"B4", "B4-bool", "B4-float", "B4-window", "B4-fp4", "B1", "B5-fp8"} <= seen
     # the ring's dynamic lengths and offsets never take it
     ring = tatt.AttnConfig(quantized=False, causal=True, causal_dynamic=True,
@@ -174,16 +175,16 @@ def test_route_takes_exactly_the_unmasked_flash():
 @pytest.mark.parametrize("cfg_kw,entry", [
     (dict(), "sage_flash_fwd"),
     (dict(causal=True), "sage_flash_fwd"),
-    (dict(masked="bool"), "sage_attn_fwd_ext"),
+    (dict(masked="bool"), "sage_flash_fwd"),
     (dict(masked="float"), "sage_flash_fwd"),
-    (dict(causal=True, window=64, sinks=2), "sage_attn_fwd_ext"),
+    (dict(causal=True, window=64, sinks=2), "sage_flash_fwd"),
     (dict(p_sim_fp4=True), "sage_flash_fwd"),
 ])
 def test_kernel_entry_per_configuration(monkeypatch, cfg_kw, entry):
-    """``attention_kernel`` launches B4, B4-fp4 and, at this head dim,
-    B4-float through the new entry and the bool-masked and windowed forms
-    through the old builds, under the same launch key family; the launch is
-    recorded instead of run (no card here)."""
+    """``attention_kernel`` launches B4, B4-fp4, the bool-masked and
+    windowed forms and, at this head dim, B4-float through the new entry,
+    under the same launch key family; the launch is recorded instead of run
+    (no card here)."""
     calls = []
     monkeypatch.setattr(_build, "call", lambda fn, device, *args: calls.append((fn, args)))
     D, S = 128, 192
@@ -201,8 +202,9 @@ def test_kernel_entry_per_configuration(monkeypatch, cfg_kw, entry):
     assert tatt.attention_call.launches[name] == before + 1
     if entry == "sage_flash_fwd":
         args = calls[0][1]
-        # head dim, the plain version's tile (64 with a bias or FP4), the mode
-        narrow = mask is not None or cfg.p_sim_fp4
-        assert args[:3] == (D, tatt.KV_TILE if narrow else tatt.flash_kv_tile(D),
-                            2 if cfg.p_sim_fp4 else 0)
-        assert args[-8:-1] == (1, 4, 2, S, S, S, int(cfg.causal))   # B .. causal
+        # head dim, the plain version's tile (64 with a bias or FP4), the
+        # mode (3: the masked walk of a window or a bool mask)
+        narrow = cfg.masked == "float" or cfg.p_sim_fp4
+        mode = 2 if cfg.p_sim_fp4 else 3 if cfg.window or cfg.masked == "bool" else 0
+        assert args[:3] == (D, tatt.KV_TILE if narrow else tatt.flash_kv_tile(D), mode)
+        assert args[25:32] == (1, 4, 2, S, S, S, int(cfg.causal))   # B .. causal

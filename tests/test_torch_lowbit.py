@@ -190,7 +190,7 @@ def test_fp4_on_other_bases_raises(fields):
 def test_fp4_route_takes_b4_fp4_at_every_head_dim():
     """``flash_sm90_route`` takes the one B4-fp4 configuration at head dims
     64, 128 and 256 (``sageattn3_tiled`` pads to those), and of the other
-    launch keys only B4 and B4-float; the plain version then walks
+    launch keys only B4, B4-window, B4-bool and B4-float; the plain version then walks
     ``KV_TILE`` columns for B4-fp4 (the tile whose row max sets the e2m1
     scale), ``flash_kv_tile`` for B4."""
     seen = set()
@@ -202,8 +202,8 @@ def test_fp4_route_takes_b4_fp4_at_every_head_dim():
         seen.add(name)
         for D in (64, 128, 256):
             got = tatt.flash_sm90_route(cfg, rows, D)
-            assert got == (name in ("B4", "B4-fp4") or (name == "B4-float" and D < 256)), (
-                name, D)
+            assert got == (name in ("B4", "B4-fp4", "B4-window", "B4-bool")
+                           or (name == "B4-float" and D < 256)), (name, D)
     assert seen == set(tatt.LAUNCH_KEYS) and "B4-fp4" in seen
 
 
@@ -238,7 +238,8 @@ def test_fp4_dispatch(monkeypatch, D):
     assert args[7:10] == q.stride()[:3] and args[10:13] == k.stride()[:3]
     assert args[19:24] == (None, 0, 0, 0, 1)            # no bias
     assert args[24] == lse.data_ptr()
-    assert args[25:] == (B, Hq, Hk, S, S, S, 1, np.float32(D ** -0.5 * tatt.LOG2E))
+    assert args[25:33] == (B, Hq, Hk, S, S, S, 1, np.float32(D ** -0.5 * tatt.LOG2E))
+    assert args[33:] == (None, None, 0, 0, 0, 0, None, 0, 0, 0, 0, 0, 0)   # no tile walk
     assert out.dtype == torch.bfloat16 and out.shape == (B, Hq, S, D)
 
 

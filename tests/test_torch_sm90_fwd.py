@@ -139,10 +139,11 @@ def _base_configs():
 
 
 def test_routes_take_exactly_their_configurations():
-    """``flash_sm90_route`` takes exactly B4 and B4-fp4 (head dims 64, 128
-    and 256) and B4-float (64 and 128); ``b1_sm90_route`` exactly B1 and
-    the fused-Q B-pvbf16 with native compute on a bf16 Q at 64 and 128.
-    Every other key, head dim and Q dtype stays on ``attention.cuh``."""
+    """``flash_sm90_route`` takes exactly B4, B4-fp4, B4-window and B4-bool
+    (head dims 64, 128 and 256) and B4-float (64 and 128);
+    ``b1_sm90_route`` exactly B1, its window and bool forms and the fused-Q
+    B-pvbf16 with native compute on a bf16 Q at 64 and 128.  Every other
+    key, head dim and Q dtype stays on ``attention.cuh``."""
     seen = set()
     for cfg in _configs():
         try:
@@ -152,13 +153,14 @@ def test_routes_take_exactly_their_configurations():
         seen.add(name)
         for D in (64, 128, 256):
             assert tatt.flash_sm90_route(cfg, 512, D) == (
-                name in ("B4", "B4-fp4") or (name == "B4-float" and D < 256)), (name, D)
+                name in ("B4", "B4-fp4", "B4-window", "B4-bool")
+                or (name == "B4-float" and D < 256)), (name, D)
             for dtype in (torch.bfloat16, torch.float32, torch.float16):
                 fused_bf16_v = (name == "B-pvbf16" and cfg.fuse_q_quant
                                 and cfg.compute_dtype == "native")
                 assert tatt.b1_sm90_route(cfg, 512, D, dtype) == (
-                    (name == "B1" or fused_bf16_v) and D < 256 and dtype == torch.bfloat16), (
-                        name, D, dtype)
+                    (name in ("B1", "B1-window", "B1-bool") or fused_bf16_v) and D < 256
+                    and dtype == torch.bfloat16), (name, D, dtype)
     assert {"B1", "B2", "B1-float", "B1-window", "B4", "B4-float", "B4-bool", "B4-window",
             "B4-fp4", "B4-float-seg"} <= seen
     ring = tatt.AttnConfig(quantized=False, causal=True, causal_dynamic=True,
@@ -198,7 +200,7 @@ def test_biased_flash_dispatch(monkeypatch, D, entry):
         args = calls[0][1]
         assert args[:3] == (D, tatt.KV_TILE, 0)
         assert args[BIAS_AT:BIAS_AT + 5] == (row.data_ptr(), 0, 0, Sq, Hq)
-        assert args[-8:-1] == (B, Hq, Hk, Sq, Sq, Sq, 1)
+        assert args[25:32] == (B, Hq, Hk, Sq, Sq, Sq, 1)
 
 
 def test_biased_flash_pads_only_a_misaligned_bias(monkeypatch):
@@ -250,7 +252,7 @@ def test_b1_dispatch(monkeypatch, D, dtype, entry):
         assert args[0] == D and args[1] == q.data_ptr() and args[2] == k8.data_ptr()
         assert len(widened) == 1 and args[3] == widened[0].data_ptr()
         assert widened[0].dtype == torch.bfloat16 and torch.equal(widened[0].float(), v8.float())
-        assert args[-8:-1] == (B, Hq, Hk, Sq, Sq, Sq, 0)
-        assert args[-9] == lmin.data_ptr()
+        assert args[23:30] == (B, Hq, Hk, Sq, Sq, Sq, 0)
+        assert args[22] == lmin.data_ptr()
     else:
         assert not widened

@@ -12,7 +12,9 @@ reverse order, and prints one line ``SHORT <tree> <json>`` a reading:
 (2, 32, 2048, 128) causal, and its library call) and ``B11-int8`` (the
 dense int8 decode of ``chip_smoke.py`` phase 8a: one sequence of 8,192
 tokens at Llama-3-8B width; device time from ``torch.profiler`` and the
-wrapper's host time), as ``tools/port_ab.py`` times them; then, per tree
+wrapper's host time), as ``tools/port_ab.py`` times them, and the unmasked
+B4 and B1 at ``tools/port_ab.py``'s Gemma-7B (head dim 256) and Llama-70B
+GQA shapes (``gemma B4``, ``llama B1``, ...); then, per tree
 and row, the median of its readings (``MEDIAN <tree> <json>``).  Each tree
 builds its own kernels into its own ``build/torch_kernels/``.
 """
@@ -36,6 +38,7 @@ def one_reading(tree: str) -> dict:
     import sageattention_tpu_torch as st
     from sageattention_tpu_torch.ops import _build
     from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.utils.testing import time_fn
     if not _build.__file__.startswith(tree):
         raise RuntimeError(f"imported {_build.__file__}, not the tree {tree}")
     spec = importlib.util.spec_from_file_location("port_ab", os.path.join(TOOLS, "port_ab.py"))
@@ -52,6 +55,16 @@ def one_reading(tree: str) -> dict:
         q = torch.randn(1, H, 1, D, generator=g, device="cuda").bfloat16()
         res.update(ab.decode_rows(torch, cs, "B11-int8", tatt, "decode_kernel",
                                   lambda: st.sageattn_decode(q, cache)))
+        del cache, q, k, v
+        for shape in ("gemma", "llama"):
+            B, Hq, Hk, S, D, causal = ab.CASES[shape]
+            q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+            for name in ("B4", "B1"):
+                cfg = cs.attn_cfg(torch, name, D, causal)
+                xs, kw = ((q, k, v), {}) if name == "B4" else cs.kernel_args(torch, cfg, q, k, v)
+                res[f"{shape} {name}"] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw),
+                                                 warmup=3, reps=20) * 1e3
+            del q, k, v
     return res
 
 

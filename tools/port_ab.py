@@ -89,10 +89,20 @@ form at CogVideoX1.5, its fused-Q form (``sageattn(pv_dtype="bf16")``'s
 launch) at both shapes; ``B10-B-pvbf16-offsets`` on a visible
 Llama-3-8B-width chunk pair (32/8 heads, 8,192 x 8,192, hd 128) and
 ``-kvtrue`` on the CogVideoX1.5 chunk pair; and ``sageattn_qk_int8_pv_bf16``'s
-call at both shapes with where it spends its time (``parts``).  Each tree
-also reports ``ptxas``'s registers and spills for ``attention_sm90.cu``,
-``attention_q8_sm90.cu`` and, where it has one, ``paged_decode_sm90.cu``
-(``ptxas``).
+call at both shapes with where it spends its time (``parts``);
+
+and last, the kernels this version of the tool was written for: the masked,
+windowed and segmented forms of B4 and B1 on the inputs the public entries
+hand them at ``chip_smoke.py`` phase 7's shapes (``masked_rows``): the
+Mistral-7B window (1, 32/8, 16,384, 128, W = 4,096) for ``B4-window`` and
+``B1-window`` beside causal ``B4`` and ``B1``, the left-padded Llama-3-8B
+batch (4, 32/8, 4,096, 128) for ``B4-bool`` and ``B1-bool``, the ~25%-live
+block-sparse mask at CogVideoX1.5 for ``B1-bool`` and ``B4-bool`` beside
+dense ``B1``, and the packed varlen prompts (16,384 tokens at Llama-3-8B
+width) for ``B1-colk-seg`` and, with a 4,096 window and 4 sinks,
+``B1-colk-seg-window``.  Each tree also reports ``ptxas``'s registers and spills for ``flash_sm90.cu``,
+``attention_sm90.cu``, ``attention_q8_sm90.cu`` and, where it has one,
+``paged_decode_sm90.cu`` (``ptxas``).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
@@ -192,9 +202,13 @@ def one_tree(tree: str) -> dict:
     torch.cuda.empty_cache()
     with torch.inference_mode():
         res.update(pvbf16_d1_rows(torch, cs, st, _build))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res.update(masked_rows(torch, cs, st))
     res["ptxas"] = {src: [ln.strip() for ln in _build.build_log.get(src, "").splitlines()
                           if "Used" in ln or "spill" in ln or "entry function" in ln]
-                    for src in ("attention_sm90", "attention_q8_sm90", "paged_decode_sm90")
+                    for src in ("flash_sm90", "attention_sm90", "attention_q8_sm90",
+                                "paged_decode_sm90")
                     if src in _build.SOURCES}
     return res
 
@@ -289,6 +303,66 @@ def pvbf16_d1_rows(torch, cs, st, _build):
         res[name] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw), warmup=3,
                             reps=20) * 1e3
         del q, k, v, xs, kw
+    return res
+
+
+def masked_rows(torch, cs, st):
+    """The masked forms' kernel ms on the launches the public entries make
+    at phase 7's shapes, recorded by ``chip_smoke.Recorder``."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+
+    def rows(label, keys, calls):
+        seen = {}
+        with cs.Recorder(seen):
+            for fn in calls:
+                fn()
+        torch.cuda.synchronize()
+        for key in keys:
+            args, kw = seen[key]
+            run = lambda: tatt.attention_kernel(*args, **kw)  # noqa: E731
+            res[f"{label} {key}"] = time_fn(run, warmup=3, reps=20) * 1e3
+        del seen
+
+    H, Hk, S, D, W = 32, 8, 16384, 128, 4096
+    q, k, v = cs.realistic_qkv(torch, 1, H, Hk, S, D, cs.SEED + 21)
+    rows("mistral", ("B4", "B4-window", "B1", "B1-window"),
+         (lambda: st.flash_attention(q, k, v, is_causal=True),
+          lambda: st.flash_attention(q, k, v, is_causal=True, sliding_window=W),
+          lambda: st.sageattn(q, k, v, is_causal=True),
+          lambda: st.sageattn(q, k, v, is_causal=True, sliding_window=W)))
+    B, S = 4, 4096
+    q, k, v = cs.realistic_qkv(torch, B, H, Hk, S, D, cs.SEED + 24)
+    pad = S - torch.tensor([4096, 3072, 1536, 512], device="cuda")
+    keep = (torch.arange(S, device="cuda")[None, None, None, :] >= pad[:, None, None, None])
+    keep = keep.expand(B, 1, S, S).contiguous()
+    rows("left-padded", ("B4-bool", "B1-bool"),
+         (lambda: st.sageattn(q, k, v, is_causal=True, attn_mask=keep),
+          lambda: tatt.attention_call(q, k, v, attn_mask=keep,
+                                      cfg=cs.flash_cfg(torch, D, True, masked="bool"))))
+    del keep
+    B, H, S, D = 1, 48, 17776, 64
+    q, k, v = cs.realistic_qkv(torch, B, H, H, S, D, cs.SEED + 25)
+    nb = -(-S // 128)
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 26)
+    blocks = torch.rand(nb, nb, generator=g, device="cuda") < cs.SPARSE_LIVE
+    blocks |= torch.eye(nb, dtype=torch.bool, device="cuda")
+    keep = blocks.repeat_interleave(128, 0).repeat_interleave(128, 1)[:S, :S][None, None]
+    rows("sparse", ("B1", "B1-bool", "B4-bool"),
+         (lambda: st.sageattn(q, k, v, attn_mask=keep), lambda: st.sageattn(q, k, v),
+          lambda: tatt.attention_call(q, k, v, attn_mask=keep,
+                                      cfg=cs.flash_cfg(torch, D, False, masked="bool"))))
+    del keep
+    H, D = 32, 128
+    T = sum(cs.VARLEN_LENS)
+    q, k, v = (x[0].transpose(0, 1) for x in cs.realistic_qkv(torch, 1, H, Hk, T, D,
+                                                              cs.SEED + 22))
+    cu = cs.cu_seqlens(torch, cs.VARLEN_LENS)
+    rows("varlen", ("B1-colk-seg", "B1-colk-seg-window"),
+         (lambda: st.sageattn_varlen(q, k, v, cu, cu, is_causal=True),
+          lambda: st.sageattn_varlen(q, k, v, cu, cu, is_causal=True, sliding_window=4096,
+                                     attention_sinks=4)))
     return res
 
 
