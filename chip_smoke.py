@@ -10,8 +10,8 @@ Phases (any failure exits non-zero):
 1. device: needs CUDA; prints the card's name and power limit;
 2. build: compiles the port's CUDA kernels from ``sageattention_tpu_torch/csrc``
    and prints ``ptxas``'s registers and spills of ``flash_sm90.cu``,
-   ``attention_sm90.cu``, ``attention_q8_sm90.cu`` and
-   ``paged_decode_sm90.cu`` (a spill fails the run);
+   ``attention_sm90.cu``, ``attention_q8_sm90.cu``,
+   ``paged_decode_sm90.cu`` and ``decode_sm90.cu`` (a spill fails the run);
 3. main path, with every kernel's launch count set to 0 just before and read
    just after.  At the full widths of CogVideoX1.5 joint attention
    (1, 48, 17776, 64) and a Llama-70B GQA causal prefill (64/8 heads, 16,384
@@ -68,7 +68,10 @@ Phases (any failure exits non-zero):
    Mistral-7B-v0.1 (4 of 32 blocks) sliding-window decode with and without
    sinks; the int8/fp8/bf16 caches and pools at kernel scale (B = 8,
    32,768 tokens) with the lse hook and the deferred and staged steps;
-   then every B11/D1 configuration against its plain version;
+   then every B11/D1 configuration against its plain version.  The C
+   entries each path called are counted too: the int8 B11 launches at head
+   dim 128 go to ``csrc/decode_sm90.cu`` (``sage_decode_sm90``) and none to
+   ``csrc/decode.cu``'s entry, which the fp8 and bf16 caches take;
 9. training (C1, C2) and the repairs of slice 5, outside inference mode,
    each path counted on its own: head dim 256 at Gemma-7B's attention
    widths (16 heads, hd 256, 8,192 tokens, causal: ``sageattn``, the H100
@@ -236,7 +239,19 @@ Phases (any failure exits non-zero):
    order, ``emit_state`` with a row that sees no key, T = 4 over GQA heads,
    a sliding window with sinks, 64- and 32-row blocks, MHA).  The ring's
    B10-B-pvbf16 launches are phase 10's and D1's times phase 8's, on the
-   same routes.  Its B-pvbf16 rows replace phase 4's of the same keys.
+   same routes.  Its B-pvbf16 rows replace phase 4's of the same keys;
+19. (run after phase 7) the masked, windowed and segmented forms of B4 and
+   B1 on their Hopper kernels (slice 15), each against its plain version
+   on every head at head dims 64, 128 (and 256 for B4);
+20. B11 on an int8 V cache on ``csrc/decode_sm90.cu`` (slice 16; phases 8
+   and 9b time its launches: the Llama-3-8B step, its T = 4 window, the
+   T = 25 window at kernel scale and the folded T = 9 window, one launch
+   each): its edge cases at head dims 64 and 128, each launch (one for
+   every row) against ``decode_plain`` on every head within
+   ``KERNEL_BAR``: lengths 0, 1, a tile boundary and one past it, a bucket
+   shorter than the cache, B = 3 with per-sequence V scales and the lse, a
+   window longer than the length, folded T = 4 and T = 9 windows, an
+   unfolded T = 25 window (2 GQA heads a block), 64 folded rows and 65.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -337,7 +352,8 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "paged_decode_sm90"):
+    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "paged_decode_sm90",
+                   "decode_sm90"):
         sm90_ptxas(source)   # registers; a spill fails the run
 
     def timed_phase(what, fn, *args):
@@ -370,6 +386,7 @@ def main() -> int:
         new += timed_phase("phase 15", run_q8_sm90, torch, st, totals)
         new += timed_phase("phase 17", run_fp4_fp8_sm90, torch, st, totals, fp4_recs)
         new += timed_phase("phase 18", run_pvbf16_d1_sm90, torch, st, totals)
+        new += timed_phase("phase 20", run_b11_sm90, torch, st, totals)
     kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
     for e in kernels:   # launches over every counted path (a form a key shares: its own)
         e["launches"] = totals.get(e["name"], e["launches"])
@@ -638,10 +655,12 @@ class Recorder:
     C2) while a counted path runs, so that the kernel checks replay exactly
     what the path launched."""
 
-    def __init__(self, seen):
+    def __init__(self, seen, entries=None):
         self.seen = seen
+        self.entries = {} if entries is None else entries   # C entry -> calls
 
     def __enter__(self):
+        from sageattention_tpu_torch.ops import _build
         from sageattention_tpu_torch.ops import attention as tatt
         from sageattention_tpu_torch.ops import backward as tbwd
         from sageattention_tpu_torch.ops import paged_decode as tpd
@@ -671,21 +690,31 @@ class Recorder:
                 return _real(*args, **kw)
 
             setattr(mod, attr, record)
+        self.build, self.real_call = _build, _build.call
+
+        def call(fn, *args, _real=_build.call):   # the C entries the wrappers launch
+            self.entries[fn] = self.entries.get(fn, 0) + 1
+            return _real(fn, *args)
+
+        _build.call = call
         return self
 
     def __exit__(self, *exc):
         for (mod, attr, _), real in zip(self.patched, self.reals):
             setattr(mod, attr, real)
+        self.build.call = self.real_call
 
 
-def counted_path(torch, name, expect, seen, totals, fn):
+def counted_path(torch, name, expect, seen, totals, fn, entries=None):
     """Runs one path with every launch count set to 0 just before and read
     just after; checks that each kernel of ``expect`` ran and adds the
-    counts to ``totals``.  Returns the path's result and the inputs of its
-    launches by configuration (also merged into ``seen``, first wins)."""
+    counts to ``totals``; ``entries`` maps C entries to whether the path
+    must call them or must not.  Returns the path's result and the inputs
+    of its launches by configuration (also merged into ``seen``, first
+    wins)."""
     reset_counts()
-    rec = {}
-    with Recorder(rec):
+    rec, called = {}, {}
+    with Recorder(rec, called):
         out = fn()
         torch.cuda.synchronize()
     counts = read_counts()
@@ -695,6 +724,13 @@ def counted_path(torch, name, expect, seen, totals, fn):
           flush=True)
     for key in expect:
         check(counts.get(key, 0) > 0, f"{name}: launched {key} {counts.get(key, 0)} times")
+    if entries:
+        print(f"{name} C entries: " + ", ".join(f"{k} {n}" for k, n in sorted(called.items())),
+              flush=True)
+        for fn, want in entries.items():
+            n = called.get(fn, 0)
+            check((n > 0) == want, f"{name}: called {fn} {n} times ({'some' if want else 'none'} "
+                                   f"expected)")
     for key, n in counts.items():
         totals[key] = totals.get(key, 0) + n
     return out, rec
@@ -1341,6 +1377,9 @@ DECODE_BAR = 1.5e-3  # decode vs the f32 oracle (tests/test_decode.py, tests/tes
 DECODE_FP8_BAR = 2.5e-3
 MERGE_BAR = 5e-4     # deferred / staged steps vs classic steps (tests/test_paged.py)
 SRC_DECODE = "sageattention_tpu_torch/csrc/decode.cu"
+SRC_DECODE_SM90 = "sageattention_tpu_torch/csrc/decode_sm90.cu"
+# int8 B11 at head dim 128 runs decode_sm90.cu's entry and never decode.cu's
+B11_SM90_ONLY = {"sage_decode_sm90": True, "sage_decode": False}
 # A bf16 V cache stores bf16(v - v_mean), as the JAX package does.  For a
 # bf16 v whose channel mean is below its ulp, the rounding returns v itself
 # more often than not: the stored V is biased by up to the mean, which a
@@ -1515,7 +1554,7 @@ def dense_llm_phase(torch, st, seen, totals, model):
         return None
 
     counted_path(torch, "Llama-3-8B dense-cache decode", ("B11-int8", "B11-int8-causal-mod"),
-                 seen, totals, run)
+                 seen, totals, run, entries=B11_SM90_ONLY)
     toks = state["toks"]
     T = SERVE["window_T"]
     check(state["length"] == P + n + 2 + T,
@@ -1860,7 +1899,8 @@ def kernel_scale_phase(torch, st, seen, totals):
     counted_path(torch, "decode at kernel scale", (
         "B11-int8", "B11-fp8", "B11-bf16", "B11-int8-causal-mod", "B11-fp8-causal-mod",
         "B11-bf16-causal-mod", "B11-int8-causal", "D1-int8-state", "D1-fp8-state",
-        "D1-bf16-state", "D1-int8-causal", "D1-int8"), seen, totals, run)
+        "D1-bf16-state", "D1-int8-causal", "D1-int8"), seen, totals, run,
+        entries={"sage_decode_sm90": True, "sage_decode": True})
     worst = {}
     for what, d, bar in res:
         if what not in worst or d > worst[what][0]:
@@ -1938,8 +1978,11 @@ def decode_entry(torch, name, args, kw, launches, label=None):
     print(f"     {label or name}: max_abs_err {err:.3e}, kernel {ms:.4f} ms (device time; the "
           f"wrapper {wrapper_ms:.4f} ms per call), plain {plain_ms:.3f} ms, bound "
           f"{bound[0]:.4f} ms ({bound[1]}) at {shape}", flush=True)
-    src = (SRC_D1_SM90 if name.startswith("D1") and tpd.d1_sm90_route(args[3].dtype, D)
-           else SRC_DECODE)
+    if name.startswith("D1"):
+        src = SRC_D1_SM90 if tpd.d1_sm90_route(args[3].dtype, D) else SRC_DECODE
+    else:
+        src = (SRC_DECODE_SM90 if tatt.b11_sm90_route(cfg, q.shape[2], D, args[2].dtype)
+               else SRC_DECODE)
     return {"name": label or name, "route": "cuda", "source": src, "replaces": src_line,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
@@ -2087,7 +2130,8 @@ def hd256_phase(torch, st, totals):
 
     seen, before = {}, dict(totals)
     (dense, paged), _ = counted_path(torch, "Gemma-7B head dim 256 decode", ("B11-int8", "D1-int8"),
-                                     seen, totals, run)
+                                     seen, totals, run,
+                                     entries={"sage_decode": True, "sage_decode_sm90": False})
     counts = _path_counts(before, totals)
     for h in heads:
         d = _rows_diff(dense[0, h], _window_oracle(torch, qd[0, h], k[0, h], v[0, h]))
@@ -2118,7 +2162,7 @@ def fold_phase(torch, st, totals):
     q = rn(B, H, T, D)
     seen, before = {}, dict(totals)
     folded, _ = counted_path(torch, "folded T = 9 window", ("B11-int8-causal-mod",), seen, totals,
-                             lambda: st.sageattn_decode(q, cache))
+                             lambda: st.sageattn_decode(q, cache), entries=B11_SM90_ONLY)
     counts = _path_counts(before, totals)
     cfg = tatt.AttnConfig(causal=True, causal_dynamic=True, quantized=True, pv_dtype="int8",
                           sm_scale=D ** -0.5, kv_len=cache.max_len, kv_len_dynamic=True,
@@ -4704,6 +4748,89 @@ def run_pvbf16_d1_sm90(torch, st, totals):
         e["max_abs_err"] = max(e["max_abs_err"], err)
     print(f"     D1-int8 edges: max_abs_err {d1_edges(torch):.3e}", flush=True)
     return entries
+
+
+# ------------------------------------------------ slice 16 (phase 20) ----
+
+# (label, B, Hq, Hk, length, T, folded, max_len, bucket, emit_lse)
+B11_EDGES = [("length 0", 1, 8, 2, 0, 1, True, 512, 512, False),
+             ("length 1", 1, 8, 2, 1, 1, True, 512, 512, False),
+             ("length 256 (a tile boundary)", 1, 8, 2, 256, 1, True, 512, 512, False),
+             ("length 257 (one past it)", 1, 8, 2, 257, 1, True, 512, 512, False),
+             ("a bucket of 384 of a 1,024-token cache", 1, 8, 2, 300, 1, True, 1024, 384,
+              False),
+             ("B = 3, per-sequence V scales, MHA, lse", 3, 4, 4, 700, 1, True, 768, 768, True),
+             ("a T = 4 window at length 2", 1, 8, 2, 2, 4, True, 256, 256, False),
+             ("folded T = 4 window, GQA 8/2", 1, 8, 2, 1000, 4, True, 1024, 1024, False),
+             ("folded T = 9 window (36 rows), B = 2", 2, 8, 2, 3000, 9, True, 4096, 3072, False),
+             ("unfolded T = 25 window, GQA 8/2 (2 heads a block)", 1, 8, 2, 2000, 25, False,
+              2048, 2048, False),
+             ("64 folded rows (T = 16, GQA 8/2)", 1, 8, 2, 1500, 16, True, 2048, 2048, False),
+             ("65 folded rows (T = 13, GQA 10/2)", 1, 10, 2, 1500, 13, True, 2048, 2048, True)]
+
+
+def b11_edges(torch):
+    """B11-int8 on ``csrc/decode_sm90.cu`` at head dims 64 and 128 over a
+    dense cache's view (random codes and scales, per-sequence V scale and
+    mean), each launch (one for every row) against ``decode_plain`` on
+    every head: the cases of ``B11_EDGES``.  Returns the largest
+    max_abs_err."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 210)
+    rn = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    errs = []
+    for D in (64, 128):
+        for label, B, Hq, Hk, L, T, fold, max_len, bucket, lse in B11_EDGES:
+            codes = lambda: torch.randint(-127, 128, (B, Hk, max_len, D), generator=g,  # noqa: E731
+                                          device="cuda", dtype=torch.int8)
+            k8, v8 = codes(), codes()
+            ks = rn(B, Hk, 1, max_len).abs() * 0.01 + 0.002
+            vs, vm = rn(B, Hk, 1, D).abs() * 0.01 + 0.005, rn(B, Hk, 1, D) * 0.1
+            G = Hq // Hk
+            q = rn(B, Hk, G * T, D) if fold else rn(B, Hq, T, D)
+            q = q.bfloat16()
+            causal = T > 1
+            cfg = tatt.AttnConfig(causal=causal, causal_dynamic=causal,
+                                  causal_row_mod=T if fold and causal else 0, quantized=True,
+                                  pv_dtype="int8", sm_scale=D ** -0.5, kv_len=bucket,
+                                  kv_len_dynamic=True, fuse_v_mean=True, emit_lse=lse,
+                                  fuse_q_quant=True)
+            kv_true = torch.tensor([L], dtype=torch.int32, device="cuda")
+            offsets = (torch.tensor([L - T, 0], dtype=torch.int32, device="cuda") if causal
+                       else None)
+            args = (q, k8[:, :, :bucket], v8[:, :, :bucket], cfg, ks[..., :bucket], vs, vm,
+                    kv_true, offsets)
+            name = tatt.config_name(cfg, q.shape[2])
+            before = tatt.attention_call.launches[name]
+            a = tatt.decode_kernel(*args)
+            launches = tatt.attention_call.launches[name] - before
+            b = tatt.decode_plain(*args)
+            # rows that see a key: row r of a head sits at L - T + r % T (folded)
+            rows = torch.arange(q.shape[2], device="cuda") % T
+            seen = ((L - T + rows >= 0) & (L > 0))[None, None, :].expand_as(a[0][..., 0])
+            d = calc_diff(a[0][seen], b[0][seen]) if bool(seen.any()) else 0.0
+            e = float((a[0].float() - b[0].float()).abs().max())
+            ok = (d < KERNEL_BAR and bool(torch.equal(a[0][~seen], b[0][~seen]))
+                  and a[0].dtype == b[0].dtype == torch.bfloat16)
+            if lse:
+                dl = float((a[1] - b[1]).abs().max())
+                ok = ok and dl < LSE_BAR
+            errs.append(e)
+            check(ok and launches == 1 and tatt.b11_sm90_route(cfg, q.shape[2], D, torch.int8),
+                  f"{name} edge {label}, D={D}, q {tuple(q.shape)}: {launches} launch vs plain on "
+                  f"every head ({int(seen.sum())} of {seen.numel()} rows see a key): calc_diff "
+                  f"{d:.3e} < {KERNEL_BAR}, max_abs {e:.3e}, rows with no key equal, on "
+                  f"{SRC_DECODE_SM90}")
+    return max(errs)
+
+
+def run_b11_sm90(torch, st, totals):
+    """Phase 20 (slice 16): B11-int8's edge cases on ``csrc/decode_sm90.cu``
+    (phases 8 and 9b hold and time its launches on the serving paths).
+    Returns no JSON entry."""
+    print(f"     B11-int8 edges: max_abs_err {b11_edges(torch):.3e}", flush=True)
+    return []
 
 
 # ---------------------------------------------------------------- configs ----

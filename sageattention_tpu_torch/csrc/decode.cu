@@ -1,5 +1,9 @@
 // Decode attention over an int8 KV cache: a few fresh query rows against a
-// long cache, dense (B11) or paged (D1), split along the cache.
+// long cache, dense (B11) or paged (D1), split along the cache.  Since the
+// Hopper redesigns it runs B11 and D1 on e4m3 and bf16 V, at head dim 256
+// and (B11) with an f32 output: B11 on an int8 V at head dims 64 and 128
+// with a bf16 output (every `B11-int8` key) runs decode_sm90.cu, D1 on
+// int8 pools at 64 and 128 paged_decode_sm90.cu.
 //
 // Replaces two Pallas kernels of the JAX package:
 //   B11  `_attn_kernel` (sageattention_tpu/ops/attention.py) in the decode

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
            "attention_ring", "flash_sm90", "attention_sm90", "attention_q8_sm90", "decode",
-           "paged_decode_sm90", "backward", "backward_sm90", "backward_q8_sm90")
+           "decode_sm90", "paged_decode_sm90", "backward", "backward_sm90", "backward_q8_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -74,6 +74,12 @@ _ATTN_Q8_SM90_ARGS = ([_I] * 2 + [_P] * 4 + [_LL] * 12 + [_P] * 2 + [_LL] * 2 + 
 _DECODE_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 8 + [_P] * 5 + [_I] * 16 + [_F] + [_P, _P, _LL, _F]
                 + [_P] * 4 + [_I, _P, _I, _F, _P])
 
+# (D, hpb, q_f32), (q, k, v, ks), 8 strides, (kv_true, offsets), (B, Hg, Hk,
+# R, S, n_units, n_split, row_mod), fold, (v_scale, vs_sb, v_mean, vm_sb),
+# (pm, pl, pacc, out, lse), stream
+_DECODE_SM90_ARGS = ([_I] * 3 + [_P] * 4 + [_LL] * 8 + [_P] * 2 + [_I] * 8 + [_F]
+                     + [_P, _LL, _P, _LL] + [_P] * 5 + [_P])
+
 # (D, hpb), (q, k, v, ks), 8 strides, (lens, table, lpage, win_lo), (B, P,
 # Hg, Hk, R, n_units, n_slots, page, window_T, sinks, sink_pages, n_split),
 # (v_scale, v_mean, pm, pl, pacc, out, lse), stream
@@ -112,6 +118,7 @@ SIGNATURES = {
     "sage_attn_fwd_sm90": ("attention_sm90", _ATTN_SM90_ARGS),
     "sage_attn_fwd_q8_sm90": ("attention_q8_sm90", _ATTN_Q8_SM90_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
+    "sage_decode_sm90": ("decode_sm90", _DECODE_SM90_ARGS),
     "sage_paged_decode_sm90": ("paged_decode_sm90", _PAGED_SM90_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
     "sage_bwd_sm90": ("backward_sm90", _BWD_SM90_ARGS),
@@ -128,6 +135,7 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "attention_sm90": "sage_attn_sm90_error_string",
                  "attention_q8_sm90": "sage_attn_q8_sm90_error_string",
                  "decode": "sage_decode_error_string",
+                 "decode_sm90": "sage_decode_sm90_error_string",
                  "paged_decode_sm90": "sage_paged_decode_sm90_error_string",
                  "backward": "sage_bwd_error_string",
                  "backward_sm90": "sage_bwd_sm90_error_string",

@@ -76,11 +76,17 @@ denominator per 64-row query tile.
 
 The decode configuration (B11: a dynamic length ``kv_true_dyn``, dynamic
 causal ``offsets``, ``causal_row_mod`` for folded verify windows, any
-``kv_split``; at most 32 query rows a launch, folded rows past them in
-further launches) goes to ``csrc/decode.cu``, a split-KV
-kernel whose splits are its own choice (:func:`decode_splits`); its keys
-are ``B11-<V format>`` with ``-causal`` or ``-causal-mod``.  Its plain
-version (:func:`decode_plain`) walks the same splits and 64-token tiles.
+``kv_split``) has the keys ``B11-<V format>`` with ``-causal`` or
+``-causal-mod``.  On an int8 V at head dims 64 and 128 with a bf16 output
+(every ``B11-int8`` key, :func:`b11_sm90_route`) it runs
+``csrc/decode_sm90.cu``: TMA-staged tiles, int8 tensor-core scores and PV,
+the query rows of a KV head in one block of up to 64 (any number of folded
+rows in one launch), shares of at least ``SM90_DECODE_MIN_TILES`` live
+tiles (:func:`sm90_decode_splits`).  Its e4m3 and bf16 forms, head dim 256 and an f32
+output run ``csrc/decode.cu``, a split-KV kernel whose splits are
+:func:`decode_splits`, at most 32 query rows a launch (folded rows past
+them in further launches).  The plain version (:func:`decode_plain`) walks
+the same shares and 64-token tiles as the kernel of its route.
 The same fields over more rows are the ring's (B10, ``parallel/ring.py``):
 the prefill kernel on a pre-quantized Q (``csrc/attention_ring.cu``) with
 causal positions shifted by the device ``offsets`` ``(q_start, kv_start)``
@@ -1216,11 +1222,57 @@ def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, k
 
 
 # ------------------------------------------------------------ decode (B11) ----
-# The decode kernel (csrc/decode.cu) splits each sequence's live 64-token
-# tiles into ``decode_splits`` contiguous shares, one block each, and merges
-# the shares' (m, l, acc) exactly.  The plain versions below walk the same
-# shares and tiles, so a quantized P is rounded against the same running
-# maxima on both sides.
+# The decode kernels split each sequence's live 64-token tiles into
+# contiguous shares, one block each, and merge the shares' (m, l, acc)
+# exactly: csrc/decode_sm90.cu into ``sm90_decode_splits`` shares of at
+# least ``SM90_DECODE_MIN_TILES`` tiles, csrc/decode.cu into
+# ``decode_splits`` shares.
+# The plain versions below walk the same shares and tiles, so a quantized P
+# is rounded against the same running maxima on both sides.
+
+# the shares and blocks of the Hopper decode kernels, csrc/decode_sm90.cu
+# (B11) and csrc/paged_decode_sm90.cu (D1)
+SM90_DECODE_MIN_TILES = 4         # live tiles a share walks, at least
+SM90_DECODE_SPLIT_CAP = 16        # shares a sequence, unless B * Hk is small
+SM90_DECODE_TARGET_BLOCKS = 528   # blocks to aim for then: four on each of the H100's 132 SMs
+SM90_DECODE_MAX_ROWS = 64         # query rows of one block
+
+
+def b11_sm90_route(cfg: AttnConfig, rows: int, D: int, v_dtype) -> bool:
+    """True for the B11 launches that ``csrc/decode_sm90.cu`` runs: int8 V
+    codes (``B11-int8``, ``-causal``, ``-causal-mod``) at head dims 64 and
+    128 with a bf16 output.  e4m3 and bf16 V, D = 256 and an f32 output stay
+    on ``csrc/decode.cu``.  ``cfg`` must be a decode configuration that
+    :func:`config_name` takes over ``rows`` query rows."""
+    return (is_decode(cfg, rows) and cfg.pv_dtype == "int8" and v_dtype == torch.int8
+            and D in (64, 128) and cfg.out_dtype == torch.bfloat16)
+
+
+def sm90_decode_splits(B: int, Hk: int, n_units: int) -> int:
+    """Shares of one sequence's stream on the Hopper decode kernels (their
+    grid's first axis) for ``B`` sequences of ``Hk`` KV heads over a stream
+    of ``n_units`` 64-token tiles (B11: the static bucket; D1: the stream's
+    slots): up to ``SM90_DECODE_SPLIT_CAP``, more when ``B * Hk`` would
+    leave the card short of ``SM90_DECODE_TARGET_BLOCKS`` blocks, never
+    more than ``SM90_DECODE_MIN_TILES``-tile shares need.  Each sequence
+    cuts its own live tiles into shares of ``max(SM90_DECODE_MIN_TILES,
+    ceil(live / sm90_decode_splits))``, so a long sequence's blocks walk
+    about as many bytes as a short one's.  Neither the rows nor the GQA
+    fold enter it."""
+    cap = max(SM90_DECODE_SPLIT_CAP, -(-SM90_DECODE_TARGET_BLOCKS // (B * Hk)))
+    return max(1, min(cap, -(-n_units // SM90_DECODE_MIN_TILES)))
+
+
+def sm90_heads_per_block(G: int, R: int) -> int:
+    """Query heads of one KV head that share a block of the Hopper decode
+    kernels (``G`` of them, ``R`` rows each): the most that divide ``G``
+    within ``SM90_DECODE_MAX_ROWS`` rows, so K and V are read once for all
+    of them (1 when ``R`` alone is more: B11's rows then take blocks of
+    64)."""
+    if R > SM90_DECODE_MAX_ROWS:
+        return 1
+    return max(h for h in range(1, G + 1) if G % h == 0 and h * R <= SM90_DECODE_MAX_ROWS)
+
 
 def decode_splits(B: int, Hk: int) -> int:
     """KV splits of one decode launch for ``B`` sequences of ``Hk`` KV heads:
@@ -1305,7 +1357,10 @@ def decode_plain(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, of
     kv_len = max(0, min(int(kv_true.reshape(-1)[0]), Sk))
     hi = min(-(-Sk // KV_TILE), -(-kv_len // KV_TILE))
     n_tok = hi * KV_TILE
-    n_split = decode_splits(B, Hk)
+    if b11_sm90_route(cfg, R, D, v.dtype):   # csrc/decode_sm90.cu's shares
+        n_split, min_per = sm90_decode_splits(B, Hk, -(-Sk // KV_TILE)), SM90_DECODE_MIN_TILES
+    else:
+        n_split, min_per = decode_splits(B, Hk), 1
     p_mode = "bf16" if cfg.pv_dtype == "bf16" else cfg.pv_dtype
     q8, qs = _row_quant(q.float() * _F32(cfg.sm_scale * LOG2E))
     cols = torch.arange(n_tok, device=q.device)[None, :]
@@ -1326,7 +1381,7 @@ def decode_plain(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, of
             s = s * ksb.repeat_interleave(G, dim=0)[:, None, :]
             s = torch.where(keep, s, MASK_NEG)
             vb = _pad_rows(_v_operand(v[b], cfg.pv_dtype), n_tok).repeat_interleave(G, dim=0)
-            m, l, acc = split_online_plain(s, vb, p_mode, n_split)
+            m, l, acc = split_online_plain(s, vb, p_mode, n_split, min_per)
             vs = None if v_scale is None else _per_q_head(v_scale[b:b + 1].float(), Hq)[0]
             vm = None if v_mean is None else _per_q_head(v_mean[b:b + 1].float(), Hq)[0]
             outs.append(decode_epilogue(m, l, acc, vs, vs_mul, vm).to(cfg.out_dtype))
@@ -1389,9 +1444,56 @@ def decode_launch(*, paged, q, k, v, ks, lens, Hk, S,
     return out, lse
 
 
+def ks_operand(k_scale, n):
+    """Per-token K scales ``[B|P, Hk, 1, S]`` in f32 as ``[B|P, Hk, n]`` (``n``
+    a multiple of 64 tokens) with the Hopper decode kernels' bulk-copy
+    alignment: a unit token stride, a 16-byte base and strides of whole
+    16-byte units (a copy otherwise, padded with ones past ``S``)."""
+    ks = k_scale.float()[:, :, 0]
+    if ks.shape[-1] != n:
+        return torch.nn.functional.pad(ks, (0, n - ks.shape[-1]), value=1.0)
+    if ks.stride(-1) != 1 or ks.data_ptr() % 16 or ks.stride(0) % 4 or ks.stride(1) % 4:
+        ks = ks.contiguous()
+    return ks
+
+
+def _b11_sm90(q, k, v, cfg, k_scale, v_scale, v_mean, kv_true, offsets):
+    """Launch ``csrc/decode_sm90.cu`` (the shares, then their merge) in one
+    call for every row of ``q [B, Hg, R, D]``; returns ``(out [B, Hg, R, D]
+    bf16, lse_base2 | None)``.  K and V are read in place through tensor
+    maps; the length and the offsets stay on the device."""
+    B, Hg, R, D = q.shape
+    Hk, Sk = k.shape[1], k.shape[2]
+    dev = q.device
+    n_units = -(-Sk // KV_TILE)
+    n_split = sm90_decode_splits(B, Hk, n_units)
+    qk = (q if q.dtype == torch.bfloat16 else q.float()).contiguous()
+    k, v = _build.vector_aligned(k), _build.vector_aligned(v)
+    ks = ks_operand(k_scale, n_units * KV_TILE)
+    vs, vm = _f32c(v_scale), _f32c(v_mean)
+    pm = torch.empty((B * Hg, n_split, R), dtype=torch.float32, device=dev)
+    pl = torch.empty_like(pm)
+    pacc = torch.empty((B * Hg, n_split, R, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Hg, R, D), dtype=torch.bfloat16, device=dev)
+    lse = torch.empty((B, Hg, R), dtype=torch.float32, device=dev) if cfg.emit_lse else None
+    kvt = kv_true.reshape(-1)[:1].to(torch.int32).contiguous()
+    offs = offsets.reshape(-1)[:2].to(torch.int32).contiguous() if cfg.causal else None
+    batch = lambda x: Hk * D if x is not None and x.shape[0] > 1 else 0  # noqa: E731
+    _build.call("sage_decode_sm90", dev, D, sm90_heads_per_block(Hg // Hk, R),
+                int(qk.dtype == torch.float32), qk.data_ptr(), k.data_ptr(), v.data_ptr(),
+                ks.data_ptr(), *k.stride()[:3], *v.stride()[:3], ks.stride(0), ks.stride(1),
+                kvt.data_ptr(), None if offs is None else offs.data_ptr(), B, Hg, Hk, R, Sk,
+                n_units, n_split, cfg.causal_row_mod if cfg.causal else 0,
+                _F32(cfg.sm_scale * LOG2E), vs.data_ptr(), batch(vs),
+                None if vm is None else vm.data_ptr(), batch(vm), pm.data_ptr(), pl.data_ptr(),
+                pacc.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr())
+    return out, lse
+
+
 def decode_kernel(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, offsets):
-    """Launch B11 on CUDA tensors; same arguments and returns as
-    :func:`decode_plain`."""
+    """Launch B11 on CUDA tensors (``csrc/decode_sm90.cu`` on
+    :func:`b11_sm90_route`, one launch for every row, else
+    ``csrc/decode.cu``); same arguments and returns as :func:`decode_plain`."""
     name = config_name(cfg, q.shape[2])
     B, Hq, R, D = q.shape
     Hk, Sk = k.shape[1], k.shape[2]
@@ -1401,6 +1503,10 @@ def decode_kernel(q, k, v, cfg: AttnConfig, k_scale, v_scale, v_mean, kv_true, o
         v = v.to(torch.bfloat16)
     elif v.dtype != _V_DTYPE[cfg.pv_dtype]:
         raise TypeError(f"pv_dtype={cfg.pv_dtype!r} takes {_V_DTYPE[cfg.pv_dtype]} V codes")
+    if b11_sm90_route(cfg, R, D, v.dtype):
+        out, lse = _b11_sm90(q, k, v, cfg, k_scale, v_scale, v_mean, kv_true, offsets)
+        attention_call.launches[name] += 1
+        return out, lse
     fp8 = cfg.pv_dtype == "fp8"
     ks = k_scale.float()
     outs, lses = [], []
@@ -1528,7 +1634,8 @@ def _decode_call(q, k, v, k_scale, v_scale, v_mean, kv_true, offsets, cfg,
                  q_scale, k_head_scale, kn_max, q_segments, attn_mask):
     """``attention_call`` in the decode configuration (B11): at most
     ``DECODE_ROWS`` query rows, or any number of folded verify-window rows
-    (``causal_row_mod``), which the kernel takes 32 at a time."""
+    (``causal_row_mod``), which ``csrc/decode_sm90.cu`` takes in one launch
+    and ``csrc/decode.cu`` 32 at a time."""
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
     if Hq % Hk or v.shape != k.shape or k.shape[0] != B or k.shape[3] != D:

@@ -14,8 +14,8 @@ past a sequence's length or outside its window.  An int8 V pool at head
 dims 64 and 128 (every ``D1-int8`` key, :func:`d1_sm90_route`) runs
 ``csrc/paged_decode_sm90.cu``: TMA-staged tiles, tensor-core scores and PV,
 the query heads of a KV head in one block, and shares of at least
-``D1_MIN_TILES`` live tiles (:func:`d1_splits`); e4m3 and bf16 V and head
-dim 256 run ``csrc/decode.cu``.
+``SM90_DECODE_MIN_TILES`` live tiles (``ops.attention.sm90_decode_splits``);
+e4m3 and bf16 V and head dim 256 run ``csrc/decode.cu``.
 
 Numerics (the Pallas kernel's): s = (q . k8) * ks in f32 with K codes
 upcast; the online softmax with the running max floored at ``M_CLAMP``, l
@@ -38,8 +38,9 @@ import itertools
 import torch
 
 from . import _build
-from .attention import (DECODE_ROWS, KV_TILE, MASK_NEG, _no_tf32, _v_operand, decode_epilogue,
-                        decode_launch, decode_splits, split_online_plain)
+from .attention import (DECODE_ROWS, KV_TILE, MASK_NEG, SM90_DECODE_MIN_TILES, _no_tf32,
+                        _v_operand, decode_epilogue, decode_launch, decode_splits, ks_operand,
+                        sm90_decode_splits, sm90_heads_per_block, split_online_plain)
 
 _FMT = {torch.int8: "int8", torch.float8_e4m3fn: "fp8", torch.bfloat16: "bf16"}
 
@@ -62,38 +63,12 @@ LAUNCH_KEYS = tuple(
     for dt, (w, sl, sk), st in itertools.product(
         _FMT, ((1, False, 0), (2, False, 0), (1, True, 0), (1, True, 1)), (False, True)))
 
-D1_MIN_TILES = 4         # live tiles a share of csrc/paged_decode_sm90.cu walks, at least
-D1_SPLIT_CAP = 16        # its shares per sequence, unless B * Hk is small
-D1_TARGET_BLOCKS = 528   # blocks to aim for then: four on each of the H100's 132 SMs
-D1_MAX_ROWS = 64         # query rows of one of its blocks
-
 
 def d1_sm90_route(v_dtype, D: int) -> bool:
     """True for the D1 launches that ``csrc/paged_decode_sm90.cu`` runs: an
     int8 V pool at head dims 64 and 128, every window, sliding, sink and
     state form.  e4m3 and bf16 V and D = 256 stay on ``csrc/decode.cu``."""
     return v_dtype == torch.int8 and D in (64, 128)
-
-
-def d1_splits(B: int, Hk: int, n_units: int) -> int:
-    """Shares of one sequence's stream on ``csrc/paged_decode_sm90.cu``
-    (its grid's first axis) for ``B`` sequences of ``Hk`` KV heads over a
-    stream of ``n_units`` 64-token tiles: up to ``D1_SPLIT_CAP``, more when
-    ``B * Hk`` would leave the card short of ``D1_TARGET_BLOCKS`` blocks,
-    never more than a stream of ``D1_MIN_TILES``-tile shares needs.  Each
-    sequence cuts its own live tiles into shares of ``max(D1_MIN_TILES,
-    ceil(live / d1_splits))``, so a long sequence's blocks walk about as
-    many bytes as a short one's."""
-    cap = max(D1_SPLIT_CAP, -(-D1_TARGET_BLOCKS // (B * Hk)))
-    return max(1, min(cap, -(-n_units // D1_MIN_TILES)))
-
-
-def d1_heads_per_block(G: int, R: int) -> int:
-    """Query heads of one KV head that share a block of
-    ``csrc/paged_decode_sm90.cu`` (``G`` of them, ``R`` rows each): the most
-    that divide ``G`` within ``D1_MAX_ROWS`` rows, so K and V are read once
-    for all of them."""
-    return max(h for h in range(1, G + 1) if G % h == 0 and h * R <= D1_MAX_ROWS)
 
 
 def _stream(table_eff, lengths, lpage, win_lo, n_pages, page):
@@ -120,7 +95,7 @@ def paged_decode_plain(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff, 
     sink_pages = -(-sinks // page) if sinks else 0
     n_units = n_pages * (page // KV_TILE)
     if d1_sm90_route(v_pool.dtype, D):   # csrc/paged_decode_sm90.cu's shares
-        n_split, min_per = d1_splits(B, Hk, n_units), D1_MIN_TILES
+        n_split, min_per = sm90_decode_splits(B, Hk, n_units), SM90_DECODE_MIN_TILES
     else:
         n_split, min_per = decode_splits(B, Hk), 1
     qf = q.float()
@@ -188,16 +163,6 @@ def paged_decode_kernel(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table_eff,
     return out, lse
 
 
-def _ks_operand(ks_pool):
-    """The K-scale pool ``[P, Hk, 1, page]`` in f32 as ``[P, Hk, page]`` with
-    the bulk copies' alignment: a unit token stride, a 16-byte base and
-    strides of whole 16-byte units (a copy otherwise)."""
-    ks = ks_pool.float()[:, :, 0]
-    if (ks.stride(-1) != 1 or ks.data_ptr() % 16 or ks.stride(0) % 4 or ks.stride(1) % 4):
-        ks = ks.contiguous()
-    return ks
-
-
 def _paged_sm90(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table, lp, lens, lo, *,
                 n_pages, window, sinks, emit_state):
     """Launch ``csrc/paged_decode_sm90.cu`` (the shares, then their merge)
@@ -209,12 +174,12 @@ def _paged_sm90(q, k8_pool, ks_pool, v_pool, v_scale, v_mean, table, lp, lens, l
     if not 1 <= R <= DECODE_ROWS:
         raise ValueError(f"D1 takes 1..{DECODE_ROWS} query rows, got {R}")
     dev = q.device
-    hpb = d1_heads_per_block(Hg // Hk, R)
+    hpb = sm90_heads_per_block(Hg // Hk, R)
     n_units = n_pages * (page // KV_TILE)
-    n_split = d1_splits(B, Hk, n_units)
+    n_split = sm90_decode_splits(B, Hk, n_units)
     qb = q.to(torch.bfloat16).contiguous()
     k, v = _build.vector_aligned(k8_pool), _build.vector_aligned(v_pool)
-    ks = _ks_operand(ks_pool)
+    ks = ks_operand(ks_pool, page)
     vs = v_scale.float().reshape(Hk * D).contiguous()
     vm = v_mean.float().reshape(Hk * D).contiguous()
     pm = torch.empty((B * Hg, n_split, R), dtype=torch.float32, device=dev)

@@ -3,7 +3,8 @@
 the launch keys of both modules unchanged, what ``paged_decode_kernel``
 hands the entry (recorded, not run: no card here), that a failed launch
 raises, and the plain version's walk, which follows the kernel's shares
-(``d1_splits``, at least ``D1_MIN_TILES`` tiles a share), against the JAX
+(``sm90_decode_splits``, at least ``SM90_DECODE_MIN_TILES`` tiles a share,
+which csrc/decode_sm90.cu's B11 shares too), against the JAX
 package's ``paged_decode_call(interpret=True)`` under ``jax.jit``: a
 sequence of length 0, 1, a page boundary and one past it, pages out of
 order, a T = 4 causal window over GQA heads, a sliding window whose lower
@@ -121,7 +122,7 @@ def test_plain_matches_jax(case, monkeypatch):
         n_pages=n_pages, window=T, lpage=t(lpage), win_lo=t(lo), sinks=sinks,
         emit_state=emit_state)
     n_units = n_pages * (page // tatt.KV_TILE)
-    assert walks == [(tpd.d1_splits(B, Hk, n_units), tpd.D1_MIN_TILES)] * B
+    assert walks == [(tatt.sm90_decode_splits(B, Hk, n_units), tatt.SM90_DECODE_MIN_TILES)] * B
     qp = np.zeros((B, Hg, TQ, D), np.float32)
     qp[:, :, :R] = q.float().numpy()
     lo_j = np.zeros(B, np.int32) if lo is None else lo
@@ -158,15 +159,17 @@ def test_route_and_launch_keys():
 
 
 def test_shares_and_heads_per_block():
-    """The kernel's shares: up to 16 a sequence, more when B * Hk is small,
-    never more than 4-tile shares need; the query heads of a KV head share
-    a block within 64 rows."""
-    assert tpd.d1_splits(8, 8, 68) == 16      # 8 slots, pages of 256, 17 a slot
-    assert tpd.d1_splits(1, 8, 129) == 33     # one sequence: 264 blocks
-    assert tpd.d1_splits(8, 8, 8) == 2 and tpd.d1_splits(8, 8, 1) == 1
-    assert tpd.d1_splits(8, 8, 516) == 16
-    assert [tpd.d1_heads_per_block(4, R) for R in (1, 4, 16, 32)] == [4, 4, 4, 2]
-    assert tpd.d1_heads_per_block(1, 32) == 1 and tpd.d1_heads_per_block(8, 16) == 4
+    """The Hopper decode kernels' shares (D1's and B11's): up to 16 a
+    sequence, more when B * Hk is small, never more than 4-tile shares
+    need; the query heads of a KV head share a block within 64 rows (B11's
+    rows past 64, one head a block)."""
+    splits, hpb = tatt.sm90_decode_splits, tatt.sm90_heads_per_block
+    assert splits(8, 8, 68) == 16      # 8 slots, pages of 256, 17 a slot
+    assert splits(1, 8, 129) == 33     # one sequence: 264 blocks
+    assert splits(8, 8, 8) == 2 and splits(8, 8, 1) == 1
+    assert splits(8, 8, 516) == 16
+    assert [hpb(4, R) for R in (1, 4, 16, 25, 32, 36)] == [4, 4, 4, 2, 2, 1]
+    assert hpb(1, 32) == 1 and hpb(8, 16) == 4 and hpb(1, 65) == 1 and hpb(2, 64) == 1
     # plain: shares of max(4, ceil(live / n_split)) tiles, merged exactly
     rng = np.random.default_rng(0)
     s = torch.from_numpy(rng.standard_normal((2, 3, 10 * 64)).astype(np.float32)) * 8
@@ -206,7 +209,7 @@ def test_dispatch(monkeypatch, what):
     """D1-int8 goes to ``sage_paged_decode_sm90``: the pools in place with
     their strides, the K scales as ``[P, Hk, page]`` in place, the stream
     (lengths, table, logical pages, window bound) as device int32 pointers,
-    the heads a block, the shares ``d1_splits`` gives and the scratch they
+    the heads a block, the shares ``sm90_decode_splits`` gives and the scratch they
     need; the launch key is counted once."""
     calls = _record(monkeypatch)
     rng = np.random.default_rng(11)
@@ -227,9 +230,9 @@ def test_dispatch(monkeypatch, what):
     assert [fn for fn, _ in calls] == ["sage_paged_decode_sm90"]
     a = calls[0][1]
     q, k8, ks, v8 = args[:4]
-    hpb = tpd.d1_heads_per_block(Hg // Hk, R)
+    hpb = tatt.sm90_heads_per_block(Hg // Hk, R)
     n_units = n_pages * page // 64
-    n_split = tpd.d1_splits(B, Hk, n_units)
+    n_split = tatt.sm90_decode_splits(B, Hk, n_units)
     assert a[:6] == (D, hpb, q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks.data_ptr())
     assert a[STRIDES_AT:STREAM_AT] == (*k8.stride()[:3], *v8.stride()[:3], Hk * page, page)
     assert all(isinstance(x, int) for x in a[STREAM_AT:STREAM_AT + 3])   # device pointers

@@ -9,12 +9,13 @@ CUDA card:
 For each pair it runs the trees in the given order, then (next pair) in the
 reverse order, and prints one line ``SHORT <tree> <json>`` a reading:
 ``mpt B4-float`` (``flash_sm90.cu``'s biased form at MPT-7B's ALiBi shape,
-(2, 32, 2048, 128) causal, and its library call) and ``B11-int8`` (the
-dense int8 decode of ``chip_smoke.py`` phase 8a: one sequence of 8,192
-tokens at Llama-3-8B width; device time from ``torch.profiler`` and the
-wrapper's host time), as ``tools/port_ab.py`` times them, and the unmasked
+(2, 32, 2048, 128) causal, and its library call), ``B11-int8`` (the dense
+int8 decode of ``chip_smoke.py`` phase 8a: one sequence of 8,192 tokens at
+Llama-3-8B width; device time from ``torch.profiler`` and the wrapper's
+host time) and ``B11-int8-causal-mod T=4`` (its T = 4 verify window), as
+``tools/port_ab.py`` times them, and the unmasked
 B4 and B1 at ``tools/port_ab.py``'s Gemma-7B (head dim 256) and Llama-70B
-GQA shapes (``gemma B4``, ``llama B1``, ...); then, per tree
+GQA shapes (``gemma B4``, ``llama B1``, ...), the B11 rows last; then, per tree
 and row, the median of its readings (``MEDIAN <tree> <json>``).  Each tree
 builds its own kernels into its own ``build/torch_kernels/``.
 """
@@ -47,15 +48,6 @@ def one_reading(tree: str) -> dict:
     _build.build_all()
     with torch.inference_mode():
         res = ab.biased_rows(torch, cs)
-        H, Hk, D = cs.SERVE["attn"]
-        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 45)
-        k = torch.randn(1, Hk, 8192, D, generator=g, device="cuda").bfloat16()
-        v = torch.randn(1, Hk, 8192, D, generator=g, device="cuda").bfloat16()
-        cache = st.kv_cache_init(k, v, 8320, v_format="int8")
-        q = torch.randn(1, H, 1, D, generator=g, device="cuda").bfloat16()
-        res.update(ab.decode_rows(torch, cs, "B11-int8", tatt, "decode_kernel",
-                                  lambda: st.sageattn_decode(q, cache)))
-        del cache, q, k, v
         for shape in ("gemma", "llama"):
             B, Hq, Hk, S, D, causal = ab.CASES[shape]
             q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
@@ -65,6 +57,16 @@ def one_reading(tree: str) -> dict:
                 res[f"{shape} {name}"] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw),
                                                  warmup=3, reps=20) * 1e3
             del q, k, v
+        torch.cuda.empty_cache()
+        H, Hk, D = cs.SERVE["attn"]
+        g = torch.Generator(device="cuda").manual_seed(cs.SEED + 45)
+        k = torch.randn(1, Hk, 8192, D, generator=g, device="cuda").bfloat16()
+        v = torch.randn(1, Hk, 8192, D, generator=g, device="cuda").bfloat16()
+        cache = st.kv_cache_init(k, v, 8320, v_format="int8")
+        for label, T in (("B11-int8", 1), ("B11-int8-causal-mod T=4", 4)):
+            q = torch.randn(1, H, T, D, generator=g, device="cuda").bfloat16()
+            res.update(ab.decode_rows(torch, cs, label, tatt, "decode_kernel",
+                                      lambda: st.sageattn_decode(q, cache)))
     return res
 
 

@@ -76,10 +76,7 @@ rest); ``B10-B5-fp8-kvtrue`` on the CogVideoX1.5 chunk pair; and
 ``sageattn_qk_int8_pv_fp8``'s call beside ``sageattn``'s (int8 PV) at
 CogVideoX1.5 and Llama-70B GQA (``sageattn pv fp8``);
 
-and last, the kernels this version of the tool was written for, after the
-unchanged decode kernel B11-int8 (``chip_smoke.py`` phase 8a's launch: one
-sequence of 8,192 tokens at Llama-3-8B width, its 4 GQA rows folded;
-device time from ``torch.profiler`` and the wrapper's host time): D1-int8
+and last, the kernels this version of the tool was written for: D1-int8
 at phase 8b's shape (8 slots of 4,097 ... 257 tokens, Llama-3-8B attention
 width, pages of 256, one T = 1 step) and its T = 4 window over phase 8e's
 ragged pools (8 slots up to 32,768 tokens, ``D1-int8-causal``), each as
@@ -100,9 +97,20 @@ batch (4, 32/8, 4,096, 128) for ``B4-bool`` and ``B1-bool``, the ~25%-live
 block-sparse mask at CogVideoX1.5 for ``B1-bool`` and ``B4-bool`` beside
 dense ``B1``, and the packed varlen prompts (16,384 tokens at Llama-3-8B
 width) for ``B1-colk-seg`` and, with a 4,096 window and 4 sinks,
-``B1-colk-seg-window``.  Each tree also reports ``ptxas``'s registers and spills for ``flash_sm90.cu``,
-``attention_sm90.cu``, ``attention_q8_sm90.cu`` and, where it has one,
-``paged_decode_sm90.cu`` (``ptxas``).
+``B1-colk-seg-window``;
+
+and last, the kernels this version of the tool was written for: B11 on an
+int8 V cache (``decode_rows``: device time from ``torch.profiler``, split
+and merge launches, and the wrapper's host time), on the launches
+``sageattn_decode`` makes: ``B11-int8`` at ``chip_smoke.py`` phase 8a's
+step (one sequence of 8,192 tokens at Llama-3-8B width, its 4 GQA rows
+folded), ``B11-int8-causal-mod T=4`` (its T = 4 verify window) and, over
+8 sequences of 32,768 tokens at the same width, ``B11-int8-causal-mod T=9``
+(the folded T = 9 window, 36 rows a KV head) and ``B11-int8-causal T=25``
+(the unfolded T = 25 window).  Each tree also reports ``ptxas``'s registers
+and spills for ``flash_sm90.cu``, ``attention_sm90.cu``,
+``attention_q8_sm90.cu`` and, where it has them, ``paged_decode_sm90.cu``
+and ``decode_sm90.cu`` (``ptxas``).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
@@ -205,10 +213,13 @@ def one_tree(tree: str) -> dict:
     torch.cuda.empty_cache()
     with torch.inference_mode():
         res.update(masked_rows(torch, cs, st))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res.update(b11_rows(torch, cs, st))
     res["ptxas"] = {src: [ln.strip() for ln in _build.build_log.get(src, "").splitlines()
                           if "Used" in ln or "spill" in ln or "entry function" in ln]
                     for src in ("flash_sm90", "attention_sm90", "attention_q8_sm90",
-                                "paged_decode_sm90")
+                                "paged_decode_sm90", "decode_sm90")
                     if src in _build.SOURCES}
     return res
 
@@ -240,9 +251,9 @@ def decode_rows(torch, cs, label, kern_mod, kern_name, call):
 
 
 def pvbf16_d1_rows(torch, cs, st, _build):
-    """B11-int8 (unchanged), then D1-int8 and D1-int8-causal (device and
-    wrapper time), B-pvbf16 in its forms, its ring pairs and
-    ``sageattn_qk_int8_pv_bf16``'s call with its parts."""
+    """D1-int8 and D1-int8-causal (device and wrapper time), B-pvbf16 in its
+    forms, its ring pairs and ``sageattn_qk_int8_pv_bf16``'s call with its
+    parts."""
     from sageattention_tpu_torch.ops import attention as tatt
     from sageattention_tpu_torch.ops import paged_decode as tpd
     from sageattention_tpu_torch.utils.testing import time_fn
@@ -250,12 +261,6 @@ def pvbf16_d1_rows(torch, cs, st, _build):
     H, Hk, D = cs.SERVE["attn"]
     g = torch.Generator(device="cuda").manual_seed(cs.SEED + 45)
     rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
-    k, v = rn(1, Hk, 8192, D).bfloat16(), rn(1, Hk, 8192, D).bfloat16()
-    cache = st.kv_cache_init(k, v, 8320, v_format="int8")
-    q = rn(1, H, 1, D).bfloat16()
-    res.update(decode_rows(torch, cs, "B11-int8", tatt, "decode_kernel",
-                           lambda: st.sageattn_decode(q, cache)))
-    del cache, k, v
     page = cs.SERVE["page"]
     for label, lens, T in (("D1-int8", [L + 1 for L in cs.SERVE["serve"]], 1),
                            ("D1-int8-causal", list(cs.SERVE["paged_lens"]), 4)):
@@ -303,6 +308,34 @@ def pvbf16_d1_rows(torch, cs, st, _build):
         res[name] = time_fn(lambda: tatt.attention_kernel(*xs, cfg, **kw), warmup=3,
                             reps=20) * 1e3
         del q, k, v, xs, kw
+    return res
+
+
+def b11_rows(torch, cs, st):
+    """B11 on an int8 V cache (device and wrapper time) at phase 8a's step
+    and its T = 4 window (B = 1, 8,192 tokens), then the folded T = 9 and
+    unfolded T = 25 windows over 8 sequences of 32,768 tokens, all at
+    Llama-3-8B attention width."""
+    from sageattention_tpu_torch.ops import attention as tatt
+    res = {}
+    H, Hk, D = cs.SERVE["attn"]
+    g = torch.Generator(device="cuda").manual_seed(cs.SEED + 45)
+    rn = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    k, v = rn(1, Hk, 8192, D).bfloat16(), rn(1, Hk, 8192, D).bfloat16()
+    cache = st.kv_cache_init(k, v, 8320, v_format="int8")
+    for label, T in (("B11-int8", 1), ("B11-int8-causal-mod T=4", 4)):
+        q = rn(1, H, T, D).bfloat16()
+        res.update(decode_rows(torch, cs, label, tatt, "decode_kernel",
+                               lambda: st.sageattn_decode(q, cache)))
+    del cache, k, v
+    B, L = cs.SERVE["kernel_B"], cs.SERVE["dense_len"]
+    k, v = rn(B, Hk, L, D).bfloat16(), rn(B, Hk, L, D).bfloat16()
+    cache = st.kv_cache_init(k, v, L)
+    del k, v
+    for label, T in (("B11-int8-causal-mod T=9", 9), ("B11-int8-causal T=25", 25)):
+        q = rn(B, H, T, D).bfloat16()
+        res.update(decode_rows(torch, cs, label, tatt, "decode_kernel",
+                               lambda: st.sageattn_decode(q, cache)))
     return res
 
 
