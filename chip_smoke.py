@@ -352,8 +352,8 @@ def main() -> int:
     t0 = time.time()
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
-    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "paged_decode_sm90",
-                   "decode_sm90"):
+    for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "attention_online_sm90",
+                   "paged_decode_sm90", "decode_sm90"):
         sm90_ptxas(source)   # registers; a spill fails the run
 
     def timed_phase(what, fn, *args):
@@ -387,6 +387,7 @@ def main() -> int:
         new += timed_phase("phase 17", run_fp4_fp8_sm90, torch, st, totals, fp4_recs)
         new += timed_phase("phase 18", run_pvbf16_d1_sm90, torch, st, totals)
         new += timed_phase("phase 20", run_b11_sm90, torch, st, totals)
+        new += timed_phase("phase 21", run_online_sm90, torch, st, totals)
     kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
     for e in kernels:   # launches over every counted path (a form a key shares: its own)
         e["launches"] = totals.get(e["name"], e["launches"])
@@ -1223,6 +1224,8 @@ def fwd_source(cfg, q):
         return SRC_ATTN_SM90
     if tatt.q8_sm90_route(cfg, Sq, D, q.dtype):
         return SRC_Q8_SM90
+    if tatt.online_sm90_route(cfg, Sq, D, q.dtype):
+        return SRC_ONLINE_SM90
     return SRC_ATTN
 
 
@@ -4833,6 +4836,136 @@ def run_b11_sm90(torch, st, totals):
     return []
 
 
+# ------------------------------------------------ slice 17 (phase 21) ----
+
+SRC_ONLINE_SM90 = "sageattention_tpu_torch/csrc/attention_online_sm90.cu"
+ONLINE_SHAPES = {"Llama-70B GQA": (1, 64, 8, 16384, 128, True),
+                 "CogVideoX1.5": COG_SHAPE + (False,)}
+# the C entries an online call may and may not reach
+ONLINE_ENTRIES = {"sage_attn_fwd_online_sm90": True, "sage_attn_fwd": False,
+                  "sage_attn_fwd_q8": False}
+B5I8_ENTRIES = {"sage_attn_fwd_q8_sm90": True, "sage_attn_fwd": False, "sage_attn_fwd_q8": False}
+
+
+def online_phase(torch, st, totals):
+    """The four keys through their public calls at Llama-70B GQA causal and
+    the fused-Q B-pvbf16-online at CogVideoX1.5: B5-fp8-fusedq
+    (``sageattn(pv_dtype="fp8")``) and B5-int8 (the int8-P online call) on
+    activation-like inputs, B2 and the fused-Q B-pvbf16-online as the
+    online reruns of ``sageattn`` and ``sageattn(pv_dtype="bf16")`` on x60
+    inputs; each call counted on its own (the key launched once, on its
+    Hopper entry and never on ``sage_attn_fwd``/``sage_attn_fwd_q8``), its
+    launch on all heads against the plain version on sampled heads, timed.
+    Returns the JSON entry of the fused-Q B-pvbf16-online at CogVideoX1.5,
+    with its own launch count."""
+    from sageattention_tpu_torch import core
+    entry, fused = None, 0
+    for i, (label, (B, H, Hk, S, D, causal)) in enumerate(ONLINE_SHAPES.items()):
+        real = realistic_qkv(torch, B, H, Hk, S, D, SEED + 220 + i)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 222 + i)
+        adv = [(torch.randn(B, h, S, D, generator=g, device="cuda") * 60).bfloat16()
+               for h in (H, Hk, Hk)]
+        # (label, key, source, C entries, call)
+        calls = [("sageattn pv_dtype=bf16, x60 inputs (online rerun)", "B-pvbf16-online",
+                  SRC_ONLINE_SM90, ONLINE_ENTRIES,
+                  lambda: st.sageattn(*adv, is_causal=causal, pv_dtype="bf16"))]
+        if label != "CogVideoX1.5":
+            calls = [("sageattn pv_dtype=fp8", "B5-fp8-fusedq", SRC_ONLINE_SM90, ONLINE_ENTRIES,
+                      lambda: st.sageattn(*real, is_causal=causal, pv_dtype="fp8")),
+                     ("int8 P online (fine K scales)", "B5-int8", SRC_Q8_SM90, B5I8_ENTRIES,
+                      lambda: core._sage_attention(*real, is_causal=causal, pv_dtype="int8",
+                                                   softmax_mode="online")),
+                     ("sageattn, x60 inputs (online rerun)", "B2", SRC_ONLINE_SM90,
+                      ONLINE_ENTRIES, lambda: st.sageattn(*adv, is_causal=causal))] + calls
+        for how, key, src, ents, fn in calls:
+            what = f"21 {label} ({B},{H}/{Hk},{S},{D}) causal={causal} {how}"
+            out, rec = counted_path(torch, what, (key,), {}, totals, fn, entries=ents)
+            exact_counts(what, read_counts(), {key: 1})
+            check(bool(torch.isfinite(out).all()) and out.shape == real[0].shape,
+                  f"{what}: finite output {tuple(out.shape)}")
+            args, akw = rec[key]
+            check(fwd_source(args[3], args[0]) == src, f"{what}: {key} ran on {src}")
+            e = attn_kernel_entry(torch, key, args, akw, 0, label=f"{key} ({what})")
+            if src == SRC_ONLINE_SM90 and key == "B-pvbf16-online":
+                fused += 1
+                if label == "CogVideoX1.5":
+                    entry = dict(e, name="B-pvbf16-online fused Q")
+            del out, rec, args, akw
+        del real, adv
+        torch.cuda.empty_cache()
+    entry["launches"] = fused
+    return [entry]
+
+
+def online_edges(torch):
+    """The four keys on their Hopper kernels at head dims 64 and 128, each
+    launch on every head against the plain version: Sq off the blocks,
+    ``kv_len < Sk`` (causal too), one kv tile only, GQA 8:1, and B5-int8
+    with folded and per-column K scales; each launch must reach its route's
+    C entry and no other.  Returns the largest max_abs_err."""
+    from sageattention_tpu_torch.ops import _build
+    from sageattention_tpu_torch.ops.attention import (attention_kernel, attention_plain,
+                                                       config_name)
+    from sageattention_tpu_torch.utils.testing import calc_diff
+    g = torch.Generator(device="cuda").manual_seed(SEED + 225)
+    errs = []
+    # (label, B, Hq, Hk, Sq, Sk, causal, kv_len)
+    cases = [("Sq off the blocks (1,4/2,1000)", 1, 4, 2, 1000, 1000, False, 0),
+             ("kv_len 900 of Sk 1000", 1, 4, 2, 1000, 1000, False, 900),
+             ("causal, kv_len 900 of Sk 1000", 1, 4, 2, 1000, 1000, True, 900),
+             ("one kv tile (Sq 300, Sk 50)", 1, 4, 2, 300, 50, False, 0),
+             ("GQA 8:1, causal (1,8/1,700)", 1, 8, 1, 700, 700, True, 0)]
+    forms = [("B2", {}), ("B5-fp8-fusedq", {}),
+             ("B-pvbf16-online", dict(fuse_q_quant=True, fold_k_scale=True)),
+             ("B5-int8", {}), ("B5-int8", dict(fold_k_scale=True))]
+    real_call = _build.call
+    for D in (64, 128):
+        for label, B, Hq, Hk, Sq, Sk, causal, kv_len in cases:
+            q, k, v = _edge_qkv(torch, g, B, Hq, Hk, Sq, Sk, D)
+            for name, extra in forms:
+                cfg = dataclasses.replace(attn_cfg(torch, name, D, causal), kv_len=kv_len,
+                                          **extra)
+                xs, kw = kernel_args(torch, cfg, q, k, v)
+                if name == "B-pvbf16-online":
+                    cfg = dataclasses.replace(cfg, fuse_v_mean=False)
+                called = []
+                _build.call = lambda fn, *a: called.append(fn) or real_call(fn, *a)
+                try:
+                    a = attention_kernel(*xs, cfg, **kw)
+                finally:
+                    _build.call = real_call
+                b = attention_plain(*xs, cfg, **kw)
+                src = fwd_source(cfg, xs[0])
+                want = ["sage_attn_fwd_online_sm90" if src == SRC_ONLINE_SM90
+                        else "sage_attn_fwd_q8_sm90"]
+                d = calc_diff(a[0], b[0])
+                e = float((a[0].float() - b[0].float()).abs().max())
+                dl = float((a[1] - b[1]).abs().max())
+                errs.append(e)
+                kind = "folded" if cfg.fold_k_scale else "per-column"
+                check(d < KERNEL_BAR and dl < LSE_BAR and called == want
+                      and src in (SRC_ONLINE_SM90, SRC_Q8_SM90)
+                      and (src == SRC_Q8_SM90) == (name == "B5-int8"),
+                      f"{config_name(cfg, Sq)} ({kind} K) edge {label}, D={D} vs plain on every "
+                      f"head: calc_diff {d:.3e} < {KERNEL_BAR}, max_abs {e:.3e}, lse {dl:.2e} < "
+                      f"{LSE_BAR}, entries {called}, on {src}")
+    return max(errs)
+
+
+def run_online_sm90(torch, st, totals):
+    """Phase 21 (slice 17): B2, B5-fp8-fusedq and the fused-Q
+    B-pvbf16-online on ``csrc/attention_online_sm90.cu`` and B5-int8 on
+    ``csrc/attention_q8_sm90.cu``'s mode 5 (phase 4 holds and times B2,
+    B5-int8 and B5-fp8-fusedq at CogVideoX1.5): the main-path calls, then
+    the edge cases.  Returns the fused-Q B-pvbf16-online's JSON entry."""
+    entries = online_phase(torch, st, totals)
+    err = online_edges(torch)
+    print(f"     online Hopper forms' edge cases: max_abs_err {err:.3e}", flush=True)
+    for e in entries:
+        e["max_abs_err"] = max(e["max_abs_err"], err)
+    return entries
+
+
 # ---------------------------------------------------------------- configs ----
 
 # ------------------------------------------------ slice 15 (phase 19) ----
@@ -5313,6 +5446,9 @@ def kernel_checks(torch, inputs, short, adv_native, launches):
             # loop runs on the sampled heads, held to those heads' outputs
             full = (*xs, cfg) + tuple(kw.get(n) for n in ATTN_KW)
             out = attention_kernel(*full)
+            if name in ("B2", "B5-int8", "B5-fp8-fusedq"):   # slice 17's Hopper kernels
+                check(fwd_source(cfg, xs[0]) in (SRC_ONLINE_SM90, SRC_Q8_SM90),
+                      f"{name} at {tuple(qq.shape)} ran on {fwd_source(cfg, xs[0])}")
             plain_ms, heads = None, []
             for sub, _, hs in sampled_heads(full, {}):
                 a = heads_of(out, hs)

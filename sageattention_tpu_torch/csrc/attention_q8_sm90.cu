@@ -1,7 +1,8 @@
 // B6, the forward on a pre-quantized Q, B5-fp8 (the same with an e4m3 P
 // and e4m3 V: the reference's H100 mode), B-pvbf16 (the same with V in
-// bf16 as given: the reference's most robust mode) and the ring's B10
-// forms of all three,
+// bf16 as given: the reference's most robust mode), the ring's B10 forms
+// of all three, and B5-int8 (an int8 P and int8 V under the online
+// softmax, not its B10 forms),
 // redesigned for Hopper on attention_sm90.cu's skeleton: TMA loads
 // completing on mbarriers (Q's int8 codes included), a ring of K/V stages
 // refilled by the last warp done with one, int8 wgmma for S = QK^T, the
@@ -18,8 +19,8 @@
 // in the ring's B10 forms of all three (parallel/ring.py:234-248: device
 // causal offsets and a device true length), at head dims 64 and 128 with
 // a bf16 output (B-pvbf16 also fp16, its `_fp16` aliases'); D = 256, an
-// f32 output, B5-fp8-fusedq, bf16 compute and every other configuration
-// stay on attention.cuh's body.  What it computes, as the plain version
+// f32 output, bf16 compute and every other configuration stay on
+// attention.cuh's body (the fused-Q online forms: attention_online_sm90.cu).  What it computes, as the plain version
 // (ops/attention.py `attention_plain`, the pre-quantized branch of
 // `_prepare_q`, `_dynamic`):
 //   s = (float(q8 . k8) * q_scale[row]) * k_scale[col] (the second factor
@@ -37,7 +38,11 @@
 //   online softmax with P = e4m3(exp2((s - m') + log2 448)) and l summing
 //   those rounded P, O = O * alpha + (P V over the tile, in f32) with V the
 //   e4m3 codes, and the lse less log2 448.  B-pvbf16: B6's softmax and
-//   product with V the caller's bf16 values, out = O * (1 / l).
+//   product with V the caller's bf16 values, out = O * (1 / l).  B5-int8
+//   (attention.py:557-567): P = rint(exp2((s - m') + log2 127)), codes 0 ..
+//   127, l = alpha l + (their sum) / 127, O = O * alpha + (P V over the
+//   tile) with V the int8 codes, out = O * (1 / l) * (v_scale / 127) +
+//   v_mean.
 //
 // What bounds it on the H100: the tensor cores (2 S^2 D int8 operations at
 // 1979 TOP/s and 2 S^2 D bf16 ones at 989 TFLOP/s; B5-fp8's PV at the fp8
@@ -104,6 +109,12 @@
 //             fold: with a plain copy ptxas gave the fragments and the
 //             softmax's words the same registers and serialized every
 //             wgmma.
+//   B5-int8   B5-fp8's structure with s8 in place of e4m3: the P codes
+//             rounded by a magic-number add and packed four to a register in
+//             the e4m3 fragments' order, V^T the same byte-wise copy of the
+//             int8 codes, an s8 wgmma m64nDk32 into a fresh s32 accumulator
+//             whose sum is exact (127 x 127 x 64 < 2^24), added into O after
+//             O * alpha, and l from dp4a sums of the codes.
 #include <stdio.h>
 
 #include <cuda_fp16.h>
@@ -116,12 +127,14 @@ using namespace sm90;
 
 constexpr float M_CLAMP = -1e20f;  // floor of the running max
 constexpr float FP8_OFFSET_LOG2 = 8.807354922057604f;  // log2(448): e4m3 P fills its range
+constexpr float INT8_P_OFFSET_LOG2 = 6.988684686772166f;  // log2(127): the int8 P scale
 
 // The softmax and PV forms: B6-static, B6-online (int8 V widened to bf16
 // under a bf16 P) and B5-fp8 (the online softmax with e4m3 P and V).  The
 // C entry's modes 3 and 4 are B-pvbf16's static and online forms: STATIC
 // and ONLINE with V in bf16 as given (the VB instantiations).
-enum Mode { STATIC = 0, ONLINE = 1, FP8 = 2, PVBF16_STATIC = 3, PVBF16_ONLINE = 4 };
+// Mode 5, B5-int8, is B5-fp8's loop with an int8 P and int8 V (an s8 wgmma PV).
+enum Mode { STATIC = 0, ONLINE = 1, FP8 = 2, PVBF16_STATIC = 3, PVBF16_ONLINE = 4, I8P = 5 };
 
 template <int D, int MODE>
 struct Cfg {
@@ -133,8 +146,8 @@ struct Cfg {
   static constexpr int CH = D / 64;            // 128-byte bf16 column boxes of a V row
   static constexpr int Q_BYTES = BM * D;       // the int8 Q codes
   static constexpr int K_BYTES = BN * D;       // one int8 K stage
-  // one V stage: bf16 rows of D, or FP8 the e4m3 V^T, D rows of BN bytes
-  static constexpr int V_BYTES = MODE == FP8 ? D * BN : BN * D * 2;
+  // one V stage: bf16 rows of D, or FP8 / I8P the 8-bit V^T, D rows of BN bytes
+  static constexpr int V_BYTES = MODE == FP8 || MODE == I8P ? D * BN : BN * D * 2;
   static constexpr int KS_BYTES = BN * 4;      // one stage's per-column K scales
   static constexpr int SMEM = Q_BYTES + STAGES * (K_BYTES + V_BYTES + KS_BYTES) + 1024;
 };
@@ -381,6 +394,78 @@ __device__ __forceinline__ void pv_issue_f8(float (&t)[D / 2], const uint32_t (&
   wg_commit();
 }
 
+// Four int8 P codes (each an f32 holding an integer 0 .. 127) as one
+// register, byte i from x_i: x + 1.5 * 2^23 rounds x to an integer in the
+// low mantissa bits (to nearest even, as rintf).
+__device__ __forceinline__ uint32_t s8x4(float x0, float x1, float x2, float x3) {
+  const uint32_t a = __float_as_uint(__fadd_rn(x0, 0x1.8p23f));
+  const uint32_t b = __float_as_uint(__fadd_rn(x1, 0x1.8p23f));
+  const uint32_t c = __float_as_uint(__fadd_rn(x2, 0x1.8p23f));
+  const uint32_t d = __float_as_uint(__fadd_rn(x3, 0x1.8p23f));
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// B5-int8's online softmax of one tile: the running maxima and alphas as
+// softmax_online's, P = rint(exp2((s - m') + log2 127)), codes 0 .. 127
+// packed into si[0 .. BN/4) in pack_e4m3's order, and l = alpha l + (the
+// codes' exact integer sum) / 127.
+template <int BN, bool COLK>
+__device__ __forceinline__ void softmax_i8(int (&si)[BN / 2], const float* ks, int k0,
+                                           int kv_len, int causal, int p0, int pA, int pB,
+                                           int q4, float qA, float qB, float& mA, float& mB,
+                                           float& lA, float& lB, float& aA, float& aB) {
+  float sc[BN / 2];
+  scores<BN, COLK>(si, sc, ks, k0, kv_len, causal, p0, pA, pB, q4, qA, qB);
+  float xA = -INFINITY, xB = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    xA = fmaxf(xA, fmaxf(sc[4 * j], sc[4 * j + 1]));
+    xB = fmaxf(xB, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 1));
+  xA = fmaxf(xA, __shfl_xor_sync(0xffffffffu, xA, 2));
+  xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 1));
+  xB = fmaxf(xB, __shfl_xor_sync(0xffffffffu, xB, 2));
+  const float nA = fmaxf(fmaxf(mA, xA), M_CLAMP), nB = fmaxf(fmaxf(mB, xB), M_CLAMP);
+  aA = ex2(__fsub_rn(mA, nA));
+  aB = ex2(__fsub_rn(mB, nB));
+  mA = nA;
+  mB = nB;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    sc[4 * j] = ex2(__fadd_rn(__fsub_rn(sc[4 * j], nA), INT8_P_OFFSET_LOG2));
+    sc[4 * j + 1] = ex2(__fadd_rn(__fsub_rn(sc[4 * j + 1], nA), INT8_P_OFFSET_LOG2));
+    sc[4 * j + 2] = ex2(__fadd_rn(__fsub_rn(sc[4 * j + 2], nB), INT8_P_OFFSET_LOG2));
+    sc[4 * j + 3] = ex2(__fadd_rn(__fsub_rn(sc[4 * j + 3], nB), INT8_P_OFFSET_LOG2));
+  }
+  int cA = 0, cB = 0;
+#pragma unroll
+  for (int h = 0; h < BN / 16; ++h) {
+    const int j = 2 * h;
+    const uint32_t wa = s8x4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 4], sc[4 * j + 5]);
+    const uint32_t wb = s8x4(sc[4 * j + 2], sc[4 * j + 3], sc[4 * j + 6], sc[4 * j + 7]);
+    cA = __dp4a((int)wa, 0x01010101, cA);
+    cB = __dp4a((int)wb, 0x01010101, cB);
+    si[4 * (h >> 1) + 2 * (h & 1)] = (int)wa;
+    si[4 * (h >> 1) + 2 * (h & 1) + 1] = (int)wb;
+  }
+  constexpr float INV127 = (float)(1.0 / 127.0);
+  lA = __fadd_rn(__fmul_rn(aA, lA), __fmul_rn((float)cA, INV127));
+  lB = __fadd_rn(__fmul_rn(aB, lB), __fmul_rn((float)cB, INV127));
+}
+
+// B5-int8's PV product of one tile into a fresh s32 accumulator t (exact:
+// 127 x 127 x 64 < 2^24, so float(t) is the plain version's f32 product):
+// BN/32 k32 steps, A (the P codes) from registers, B (the stage's int8
+// V^T, as B5-fp8's) K-major.
+template <int D, int BN>
+__device__ __forceinline__ void pv_issue_s8(int (&t)[D / 2], const uint32_t (&pf)[BN / 32][4],
+                                            uint32_t vlo) {
+#pragma unroll
+  for (int kk = 0; kk < BN / 32; ++kk) wgmma_s8_rs(t, pf[kk], desc64(vlo + kk * 2), kk > 0);
+  wg_commit();
+}
+
 // P in bf16, packed straight into the A fragments of the PV product: k16
 // step kk takes the tile's columns 16 kk .. 16 kk + 15.
 template <int BN>
@@ -432,7 +517,7 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
                         const __grid_constant__ CUtensorMap tm_ks, const Params p) {
   using C = Cfg<D, MODE>;
   constexpr int BM = C::BM, BN = C::BN, CH = C::CH, STAGES = C::STAGES, NWG = C::NWG;
-  constexpr bool F8 = MODE == FP8;
+  constexpr bool F8 = MODE == FP8, I8 = MODE == I8P;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   // q full, then per stage: k full (with its K scales), v full
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
@@ -473,7 +558,7 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
     tma_load4(sK + s * C::K_BYTES, &tm_k, bar_k + 8 * s, 0, kt * BN, hk, b);
     if constexpr (COLK) tma_load4(sKS + s * C::KS_BYTES, &tm_ks, bar_k + 8 * s, kt * BN, 0, hk, b);
     mbar_expect_tx(bar_v + 8 * s, C::V_BYTES);
-    if constexpr (F8) {
+    if constexpr (F8 || I8) {
       tma_load4(sV + s * C::V_BYTES, &tm_v, bar_v + 8 * s, kt * BN, 0, hk, b);
     } else {
 #pragma unroll
@@ -545,6 +630,9 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
     if constexpr (F8)
       softmax_fp8<BN, COLK>(si, ks, kt * BN, kv_len, p.causal, p0, pA, pB, q4, qA, qB, mA, mB,
                             lsA, lsB, aA, aB);
+    else if constexpr (I8)
+      softmax_i8<BN, COLK>(si, ks, kt * BN, kv_len, p.causal, p0, pA, pB, q4, qA, qB, mA, mB,
+                           lsA, lsB, aA, aB);
     else if constexpr (MODE == ONLINE)
       softmax_online<BN, COLK>(si, ks, kt * BN, kv_len, p.causal, p0, pA, pB, q4, qA, qB, mA,
                                mB, lsA, lsB, aA, aB);
@@ -560,14 +648,18 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
   float t[F8 ? D / 2 : 1];
 #pragma unroll
   for (int i = 0; i < (F8 ? D / 2 : 1); ++i) t[i] = 0.f;
-  uint32_t pf[F8 ? BN / 32 : BN / 16][4];  // P of the tile whose PV product is next
+  // I8: the same in s32, exact
+  int ti[I8 ? D / 2 : 1];
+#pragma unroll
+  for (int i = 0; i < (I8 ? D / 2 : 1); ++i) ti[i] = 0;
+  uint32_t pf[F8 || I8 ? BN / 32 : BN / 16][4];  // P of the tile whose PV product is next
   // P (kt) into the A fragments, once the product of P(kt - 1) has read them
   // F8: the codes move into pf through an operation with a zero the
   // compiler cannot fold (Sq >= 0): given a plain copy, ptxas let pf and
   // the softmax's words share registers, and serialized every wgmma
   const uint32_t zero = (uint32_t)p.Sq >> 31;
   auto pack = [&](const int (&si)[BN / 2]) {
-    if constexpr (F8) {
+    if constexpr (F8 || I8) {
 #pragma unroll
       for (int i = 0; i < BN / 8; ++i) pf[i >> 2][i & 3] = (uint32_t)si[i] ^ zero;
     } else {
@@ -578,15 +670,22 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
   auto pv = [&](int s) {
     if constexpr (F8)
       pv_issue_f8<D, BN>(t, pf, opaque(desc_lo(sV + s * C::V_BYTES, 16)));
+    else if constexpr (I8)
+      pv_issue_s8<D, BN>(ti, pf, opaque(desc_lo(sV + s * C::V_BYTES, 16)));
     else
       pv_issue<D, BN>(o, pf, opaque(desc_lo(sV + s * C::V_BYTES, BN * 128)));
   };
-  // F8: the completed tile's product into O
+  // F8, I8: the completed tile's product into O (I8: O * alpha and this
+  // exact sum added apart, as the plain version's acc * alpha + pv)
   auto add_t = [&]() {
     if constexpr (F8) {
       reg_fence(t);
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] = __fadd_rn(o[i], t[i]);
+    } else if constexpr (I8) {
+      reg_fence(ti);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] = __fadd_rn(o[i], (float)ti[i]);
     }
   };
 
@@ -679,7 +778,11 @@ __global__ void __launch_bounds__(Cfg<D, MODE>::THREADS, 1)
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
       const int c = 8 * j + 2 * q4;
-      const float2 sv = *reinterpret_cast<const float2*>(vs + c);
+      float2 sv = *reinterpret_cast<const float2*>(vs + c);
+      if constexpr (I8) {  // the P codes' scale, 1/127, rides with v_scale
+        sv.x = __fmul_rn(sv.x, (float)(1.0 / 127.0));
+        sv.y = __fmul_rn(sv.y, (float)(1.0 / 127.0));
+      }
       float v0 = __fmul_rn(__fmul_rn(o[4 * j], iA), sv.x);
       float v1 = __fmul_rn(__fmul_rn(o[4 * j + 1], iA), sv.y);
       float v2 = __fmul_rn(__fmul_rn(o[4 * j + 2], iB), sv.x);
@@ -736,7 +839,7 @@ int launch(const void* q, const void* k, const void* v, const long long* st, con
       !make_map_t(&mk, k, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, D, kv_rows, p.Hk, B, st[5], st[4],
                   st[3], D, C::BN, swz))
     return -2;
-  if constexpr (MODE == FP8) {
+  if constexpr (MODE == FP8 || MODE == I8P) {
     // V^T (Sk padded to 16, D, Hk, B) in boxes of BN kv bytes x D rows; the
     // map spans every padded column (the kv order is permuted within each
     // 16, so a column past kv_len may hold an earlier row), P masks them
@@ -775,6 +878,9 @@ int launch_d(int mode, const void* q, const void* k, const void* v, const long l
   if (mode == FP8)
     return colk ? launch<D, FP8, true, false>(q, k, v, st, ks, p, B, Sk, s)
                 : launch<D, FP8, false, false>(q, k, v, st, ks, p, B, Sk, s);
+  if (mode == I8P)
+    return colk ? launch<D, I8P, true, false>(q, k, v, st, ks, p, B, Sk, s)
+                : launch<D, I8P, false, false>(q, k, v, st, ks, p, B, Sk, s);
   if (mode == ONLINE)
     return colk ? launch<D, ONLINE, true, false>(q, k, v, st, ks, p, B, Sk, s)
                 : launch<D, ONLINE, false, false>(q, k, v, st, ks, p, B, Sk, s);
@@ -788,8 +894,8 @@ extern "C" {
 
 const char* sage_attn_q8_sm90_error_string(int e) {
   if (e == -1)
-    return "unsupported B6 / B5-fp8 / B-pvbf16 configuration (head_dim, GQA, strides or "
-           "pointers)";
+    return "unsupported B6 / B5-fp8 / B-pvbf16 / B5-int8 configuration (head_dim, GQA, "
+           "strides or pointers)";
   if (e == -2) {
     static char msg[128];
     snprintf(msg, sizeof msg,
@@ -806,12 +912,13 @@ const char* sage_attn_q8_sm90_error_string(int e) {
 // v [B, Hk, Sk, D]), 2 B5-fp8 (v the e4m3 V^T [B, Hk, D, Sk padded to 16]
 // of ops/attention.py `transpose_v_codes`, kv permuted within each 16), 3
 // static and 4 online B-pvbf16 (v the caller's bf16 V [B, Hk, Sk, D], null
-// v_scale and v_mean; out_f16 1 writes o as fp16, else bf16);
+// v_scale and v_mean; out_f16 1 writes o as fp16, else bf16), 5 B5-int8
+// (v the int8 V^T, as mode 2's);
 // each with its own element strides (batch, head, row; unit column stride,
 // 16-byte aligned base and outer strides); per-column K scales k_scale f32
 // [B, Hk, ks_cols] with element strides (ks_sb, ks_sh), 16-byte aligned
 // base and strides, or null when folded into q_scale; kn_max [B*Hq]
-// (static), v_scale and v_mean (or null) [B*Hk*D] f32 (modes 0-2), lse [B*Hq*Sq] (or
+// (static), v_scale and v_mean (or null) [B*Hk*D] f32 (modes 0-2, 5), lse [B*Hq*Sq] (or
 // null) f32 output; offsets [2] (q_start, kv_start) and kv_true [1], int32
 // on the device, or null.
 int sage_attn_fwd_q8_sm90(int D, int mode, const void* q, const void* k, const void* v,
@@ -824,15 +931,15 @@ int sage_attn_fwd_q8_sm90(int D, int mode, const void* q, const void* k, const v
                           const int* offsets, const int* kv_true, int B, int Hq, int Hk, int Sq,
                           int Sk, int kv_len, int causal, int out_f16, void* stream) {
   const long long st[9] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss};
-  const int ve = mode == FP8 ? 1 : 2;
+  const int ve = mode == FP8 || mode == I8P ? 1 : 2;
   const bool vb = mode == PVBF16_STATIC || mode == PVBF16_ONLINE;
   const int esize[9] = {1, 1, 1, 1, 1, 1, ve, ve, ve};
   for (int i = 0; i < 9; ++i)
     if (st[i] < 0 || (st[i] * esize[i]) % 16) return -1;
-  if (mode < STATIC || mode > PVBF16_ONLINE || B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 ||
+  if (mode < STATIC || mode > I8P || B < 1 || Hk < 1 || Hq % Hk || kv_len < 0 ||
       kv_len > Sk || !q_scale || (vb ? (v_scale || v_mean) : (!v_scale || out_f16)) ||
       ((mode == STATIC || mode == PVBF16_STATIC) && !kn_max) || (offsets && !causal) ||
-      (mode == FP8 && (Sk < 1 || v_ss < (Sk + 15) / 16 * 16)))
+      ((mode == FP8 || mode == I8P) && (Sk < 1 || v_ss < (Sk + 15) / 16 * 16)))
     return -1;
   if (k_scale && (reinterpret_cast<uintptr_t>(k_scale) % 16 || ks_sb < 0 || ks_sh < 0 ||
                   ks_cols < 1 || (B > 1 && (ks_sb * 4) % 16) || (Hk > 1 && (ks_sh * 4) % 16)))

@@ -27,8 +27,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "attention_ring", "flash_sm90", "attention_sm90", "attention_q8_sm90", "decode",
-           "decode_sm90", "paged_decode_sm90", "backward", "backward_sm90", "backward_q8_sm90")
+           "attention_ring", "flash_sm90", "attention_sm90", "attention_q8_sm90",
+           "attention_online_sm90", "decode", "decode_sm90", "paged_decode_sm90", "backward",
+           "backward_sm90", "backward_q8_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -67,6 +68,10 @@ _ATTN_SM90_ARGS = ([_I] + [_P] * 4 + [_LL] * 12 + [_P] * 6 + [_I] * 7 + [_F] + [
 # Sq, Sk, kv_len, causal, out_f16), stream
 _ATTN_Q8_SM90_ARGS = ([_I] * 2 + [_P] * 4 + [_LL] * 12 + [_P] * 2 + [_LL] * 2 + [_I] + [_P] * 6
                       + [_I] * 8 + [_P])
+
+# (D, mode), (q, k, v, o), 12 strides, (k_head_scale, v_scale, v_mean,
+# lse), (B, Hq, Hk, Sq, Sk, kv_len, causal), fold, stream
+_ATTN_ONLINE_SM90_ARGS = [_I] * 2 + [_P] * 4 + [_LL] * 12 + [_P] * 4 + [_I] * 7 + [_F, _P]
 
 # (paged, vkind, D), (q, k, v, ks), 8 strides, (lens, offsets, table, lpage,
 # win_lo), 16 shape/mode ints, fold, (v_scale, v_mean), vs_sb, vs_mul, (pm,
@@ -117,6 +122,7 @@ SIGNATURES = {
     "sage_flash_fwd": ("flash_sm90", _FLASH_ARGS),
     "sage_attn_fwd_sm90": ("attention_sm90", _ATTN_SM90_ARGS),
     "sage_attn_fwd_q8_sm90": ("attention_q8_sm90", _ATTN_Q8_SM90_ARGS),
+    "sage_attn_fwd_online_sm90": ("attention_online_sm90", _ATTN_ONLINE_SM90_ARGS),
     "sage_decode": ("decode", _DECODE_ARGS),
     "sage_decode_sm90": ("decode_sm90", _DECODE_SM90_ARGS),
     "sage_paged_decode_sm90": ("paged_decode_sm90", _PAGED_SM90_ARGS),
@@ -134,6 +140,7 @@ ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
                  "flash_sm90": "sage_flash_error_string",
                  "attention_sm90": "sage_attn_sm90_error_string",
                  "attention_q8_sm90": "sage_attn_q8_sm90_error_string",
+                 "attention_online_sm90": "sage_attn_online_sm90_error_string",
                  "decode": "sage_decode_error_string",
                  "decode_sm90": "sage_decode_sm90_error_string",
                  "paged_decode_sm90": "sage_paged_decode_sm90_error_string",

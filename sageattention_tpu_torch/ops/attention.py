@@ -5,8 +5,10 @@ the JAX field names and ``attention_call`` takes the same inputs.  The
 configurations, by their launch key (``config_name``):
 
   B1 / B2        fused int8 Q, native int8 QK^T, int8 V under a bf16 P:
-                 static, and its online fallback (pv_via_bf16); B1 with a
-                 bf16 Q at head dims 64 and 128 runs
+                 static, and its online fallback (pv_via_bf16; with a bf16 Q
+                 at head dims 64 and 128 on ``csrc/attention_online_sm90.cu``,
+                 :func:`online_sm90_route`); B1 with a bf16 Q at head dims
+                 64 and 128 runs
                  ``csrc/attention_sm90.cu`` (TMA, int8 wgmma, warpgroups
                  taking turns; :func:`b1_sm90_route`), on V codes widened to
                  bf16 (:func:`widen_v_codes`), and so do its window, bool-mask
@@ -26,13 +28,18 @@ configurations, by their launch key (``config_name``):
                  summing the rounded P (``csrc/flash_sm90.cu``'s FP4 mode at
                  head dims 64, 128 and 256; the SageAttention3 simulation of
                  ``ops/lowbit.py``)
-  B5-int8        int8 P under the online softmax, int8 V (either Q source)
+  B5-int8        int8 P under the online softmax, int8 V (either Q source);
+                 on a pre-quantized Q with a bf16 output at head dims 64 and
+                 128 it runs ``csrc/attention_q8_sm90.cu`` (an s8 wgmma PV on
+                 the V^T copy :func:`transpose_v_codes` writes)
   B5-fp8(-fusedq) e4m3 P under the online softmax, e4m3 V; a pre-quantized
                  Q (``q_scale``), or a fused one.  B5-fp8 with a bf16
                  output at head dims 64 and 128 runs
                  ``csrc/attention_q8_sm90.cu`` (an e4m3 wgmma PV on the V^T
                  copy :func:`transpose_v_codes` writes;
-                 :func:`q8_sm90_route`), as do the ring's B10 forms of it
+                 :func:`q8_sm90_route`), as do the ring's B10 forms of it;
+                 B5-fp8-fusedq on a bf16 Q there runs
+                 ``csrc/attention_online_sm90.cu``
   B6-static / B6-online  a pre-quantized Q with per-row scales, per-head
                  (folded) or per-column (``k_scale``) K scales, int8 V; with
                  a bf16 output at head dims 64 and 128 it runs
@@ -46,8 +53,9 @@ configurations, by their launch key (``config_name``):
                  ``csrc/attention_q8_sm90.cu`` on a pre-quantized Q (static
                  and online, a bf16 or fp16 output, and the ring's B10
                  forms; :func:`q8_sm90_route`) and ``csrc/attention_sm90.cu``
-                 on a fused bf16 Q (static; :func:`b1_sm90_route`), both on
-                 the caller's bf16 V with no scale or mean
+                 on a fused bf16 Q (static; :func:`b1_sm90_route`; online:
+                 ``csrc/attention_online_sm90.cu``), each on the caller's
+                 bf16 V with no scale or mean
 
 Each of them may carry the options of B7-B9, which add a suffix to the key:
 ``-colk`` a fused Q with per-column K scales (varlen, native compute),
@@ -273,14 +281,17 @@ def q8_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> b
     online softmax with an e4m3 P and e4m3 V), B-pvbf16 (the same Q and K
     with V in bf16 and no V mean, native compute, static or online), and
     the ring's B10 forms of all three (``-offsets`` and/or ``-kvtrue``),
-    with a bf16 output (B-pvbf16 also fp16) at head dims 64 and 128.  D =
-    256, an f32 output, ``B6-bf16c``, ``B5-fp8-fusedq``, B-pvbf16 with bf16
-    compute and every other configuration stay on ``attention.cuh``'s body.
-    ``cfg`` must be one :func:`config_name` takes."""
+    and B5-int8 (the same Q and K under the online softmax with an int8 P
+    and int8 V; not its B10 forms), with a bf16 output (B-pvbf16 also fp16)
+    at head dims 64 and 128.  D = 256, an f32 output, ``B6-bf16c``,
+    ``B5-fp8-fusedq``, a fused-Q B5-int8, the ring's B5-int8, B-pvbf16 with
+    bf16 compute and every other configuration stay on ``attention.cuh``'s
+    body.  ``cfg`` must be one :func:`config_name` takes."""
     if D not in (64, 128) or q_dtype != torch.int8:
         return False
     base = _q8_base(cfg, rows)
-    if base not in Q8_SM90_BASES:
+    if base not in Q8_SM90_BASES or (base == "B5-int8"
+                                     and (is_ring(cfg, rows) or cfg.fuse_q_quant)):
         return False
     if base.startswith("B-pvbf16"):
         return (cfg.out_dtype in (torch.bfloat16, torch.float16) and not cfg.fuse_q_quant
@@ -296,7 +307,28 @@ def _q8_base(cfg: AttnConfig, rows: int) -> str:
 
 # the base keys that ``csrc/attention_q8_sm90.cu`` runs, by its mode argument
 Q8_SM90_BASES = {"B6-static": 0, "B6-online": 1, "B5-fp8": 2, "B-pvbf16": 3,
-                 "B-pvbf16-online": 4}
+                 "B-pvbf16-online": 4, "B5-int8": 5}
+
+
+def online_sm90_route(cfg: AttnConfig, rows: int, D: int, q_dtype: torch.dtype) -> bool:
+    """True for the launches that ``csrc/attention_online_sm90.cu`` runs: the
+    online forward on a fused bf16 Q with head-folded K scales, with no
+    mask, window, segments or ring offsets, at head dims 64 and 128 with a
+    bf16 output, in three configurations: ``B2`` (a bf16 P over int8 V),
+    ``B5-fp8-fusedq`` (e4m3 P and V) and ``B-pvbf16-online`` (a bf16 P over
+    bf16 V with no V mean, native compute).  D = 256, an f32 or f16 Q or
+    output, per-column K scales (``-colk``), the masked forms and a fused-Q
+    B5-int8 stay on ``attention.cuh``'s body.  ``cfg`` must be one
+    :func:`config_name` takes."""
+    if (D not in (64, 128) or q_dtype != torch.bfloat16 or cfg.out_dtype != torch.bfloat16
+            or not cfg.fuse_q_quant):
+        return False
+    name = config_name(cfg, rows)
+    return name in ONLINE_SM90_BASES and (name != "B-pvbf16-online" or _bf16_v_native(cfg))
+
+
+# the keys that ``csrc/attention_online_sm90.cu`` runs, by its mode argument
+ONLINE_SM90_BASES = {"B2": 0, "B5-fp8-fusedq": 1, "B-pvbf16-online": 2}
 
 
 def flash_kv_tile(D: int) -> int:
@@ -867,10 +899,11 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
     :func:`flash_sm90_route`), ``csrc/attention_sm90.cu`` (B1, its window,
     bool and segment forms, and the fused-Q B-pvbf16 on a bf16 Q,
     :func:`b1_sm90_route`), ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8,
-    B-pvbf16 and their B10 forms, :func:`q8_sm90_route`),
-    ``csrc/attention.cu`` (fused Q) or ``attention_q8.cu`` (pre-quantized
-    Q), and their ``*_ext.cu`` builds for the B7-B9 options (masked flash
-    too); same arguments and returns as :func:`attention_plain`.  B10's
+    B-pvbf16 and their B10 forms, B5-int8, :func:`q8_sm90_route`),
+    ``csrc/attention_online_sm90.cu`` (B2, B5-fp8-fusedq and the fused-Q
+    B-pvbf16-online, :func:`online_sm90_route`), ``csrc/attention.cu``
+    (fused Q) or ``attention_q8.cu`` (pre-quantized Q), and their
+    ``*_ext.cu`` builds for the B7-B9 options (masked flash too); same arguments and returns as :func:`attention_plain`.  B10's
     offsets and true length stay on the device: the kernel reads them."""
     B, Hq, Sq, D = q.shape
     name = config_name(cfg, Sq)
@@ -896,6 +929,10 @@ def attention_kernel(q, k, v, cfg: AttnConfig, k_head_scale=None, kn_max=None,
         attention_call.launches[name] += 1
         if out.dtype != cfg.out_dtype:
             out = out.to(cfg.out_dtype)
+        return out, lse, None
+    if online_sm90_route(cfg, Sq, D, q.dtype):
+        out, lse = _online_sm90(q, k, v, cfg, k_head_scale, v_scale, v_mean)
+        attention_call.launches[name] += 1
         return out, lse, None
     static = cfg.softmax_mode == "static"
     out_dtype = cfg.out_dtype if cfg.out_dtype in (torch.bfloat16, torch.float32) else torch.float32
@@ -1176,16 +1213,17 @@ def _tma_cols(x):
 
 def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, kv_true):
     """Launch ``csrc/attention_q8_sm90.cu`` (B6, B5-fp8, B-pvbf16 and their
-    B10 forms on :func:`q8_sm90_route`): ``(out, lse_base2 | None)``, out
-    in bf16 (B-pvbf16: ``cfg.out_dtype``, bf16 or fp16).  ``q`` int8 codes
-    and ``k`` int8 codes with any strides of unit column stride, ``v`` int8
-    codes (B6, widened by :func:`widen_v_codes`), e4m3 codes (B5-fp8,
-    transposed by :func:`transpose_v_codes`) or float (B-pvbf16: rounded to
-    bf16, no scale or mean), the scales as :func:`attention_call` takes
-    them; B10's ``offsets`` and ``kv_true`` stay on the device."""
+    B10 forms, and B5-int8, on :func:`q8_sm90_route`): ``(out, lse_base2 |
+    None)``, out in bf16 (B-pvbf16: ``cfg.out_dtype``, bf16 or fp16).  ``q``
+    int8 codes and ``k`` int8 codes with any strides of unit column stride,
+    ``v`` int8 codes (B6, widened by :func:`widen_v_codes`; B5-int8,
+    transposed by :func:`transpose_v_codes`), e4m3 codes (B5-fp8,
+    transposed) or float (B-pvbf16: rounded to bf16, no scale or mean), the
+    scales as :func:`attention_call` takes them; B10's ``offsets`` and
+    ``kv_true`` stay on the device."""
     base = _q8_base(cfg, q.shape[2])
     mode = Q8_SM90_BASES[base]
-    bf16_v = mode >= 3
+    bf16_v = mode in (3, 4)
     vdt = torch.float8_e4m3fn if mode == 2 else torch.int8
     if (q.dtype != torch.int8 or k.dtype != torch.int8
             or (not torch.is_floating_point(v) if bf16_v else v.dtype != vdt)):
@@ -1194,7 +1232,7 @@ def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, k
     B, Hq, Sq, D = q.shape
     _, Hk, Sk, _ = k.shape
     q, k = _tma_operand(q), _tma_operand(k)
-    vb = (transpose_v_codes(v) if mode == 2 else
+    vb = (transpose_v_codes(v) if mode in (2, 5) else
           _tma_operand(v if bf16_v else widen_v_codes(v)))
     out_f16 = bf16_v and cfg.out_dtype == torch.float16
     out = torch.empty((B, Hq, Sq, D), dtype=torch.float16 if out_f16 else torch.bfloat16,
@@ -1218,6 +1256,42 @@ def _q8_sm90(q, k, v, cfg, kn_max, v_scale, v_mean, q_scale, k_scale, offsets, k
                 *vb.stride()[:3], *out.stride()[:3], qs.data_ptr(), ptr(ks), *ks_st, Sk,
                 ptr(knm), ptr(vs), ptr(vm), ptr(lse), ptr(offs), ptr(kvt),
                 B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal), int(out_f16))
+    return out, lse
+
+
+def _online_sm90(q, k, v, cfg, k_head_scale, v_scale, v_mean):
+    """Launch ``csrc/attention_online_sm90.cu`` (B2, B5-fp8-fusedq and the
+    fused-Q B-pvbf16-online on :func:`online_sm90_route`): ``(out bf16,
+    lse_base2 | None)``.  ``q`` bf16 with any strides of unit column stride
+    (quantized in the kernel), ``k`` int8 codes, ``v`` int8 codes (B2,
+    widened by :func:`widen_v_codes`), e4m3 codes (B5-fp8-fusedq, transposed
+    by :func:`transpose_v_codes`) or float (B-pvbf16-online: rounded to
+    bf16, no scale or mean), ``k_head_scale`` one K scale a kv head; no
+    ``kn_max``: the online softmax needs no cap."""
+    name = config_name(cfg, q.shape[2])
+    mode = ONLINE_SM90_BASES[name]
+    vdt = torch.float8_e4m3fn if mode == 1 else torch.int8
+    if k.dtype != torch.int8 or (not torch.is_floating_point(v) if mode == 2 else v.dtype != vdt):
+        raise TypeError(f"{name} takes int8 K codes and "
+                        f"{'a float V' if mode == 2 else f'{vdt} V codes'}")
+    if not cfg.sm_scale > 0:
+        raise ValueError(f"the online Hopper kernel takes sm_scale > 0, got {cfg.sm_scale}")
+    B, Hq, Sq, D = q.shape
+    _, Hk, Sk, _ = k.shape
+    q, k = _tma_operand(q), _tma_operand(k)
+    vb = transpose_v_codes(v) if mode == 1 else _tma_operand(v if mode == 2 else widen_v_codes(v))
+    out = torch.empty((B, Hq, Sq, D), dtype=torch.bfloat16, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if cfg.emit_lse else None)
+    # contiguous f32 copies, each held by a name until the launch
+    ks = k_head_scale.float().reshape(B * Hk).contiguous()
+    vs = None if mode == 2 else v_scale.float().reshape(B * Hk * D).contiguous()
+    vm = None if v_mean is None else v_mean.float().reshape(B * Hk * D).contiguous()
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    _build.call("sage_attn_fwd_online_sm90", q.device, D, mode, q.data_ptr(), k.data_ptr(),
+                vb.data_ptr(), out.data_ptr(), *q.stride()[:3], *k.stride()[:3],
+                *vb.stride()[:3], *out.stride()[:3], ks.data_ptr(), ptr(vs), ptr(vm), ptr(lse),
+                B, Hq, Hk, Sq, Sk, cfg.kv_len or Sk, int(cfg.causal), _F32(cfg.sm_scale * LOG2E))
     return out, lse
 
 

@@ -51,7 +51,7 @@ LSE_EXACT_ATOL = 1e-5
 ORACLE_BAR = 1.5e-3
 FP8_ORACLE_BAR = 5e-3
 BLK = 64
-Q8_KEY = ("B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online")
+Q8_KEY = ("B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online", "B5-int8")
 
 
 def _bf16_exact(shape, rng):
@@ -232,12 +232,12 @@ def _key_configs():
 
 def test_route_takes_exactly_b6_and_its_ring_forms():
     """``q8_sm90_route`` takes exactly B6-static, B6-online, B5-fp8,
-    B-pvbf16 (static and online) and their B10 forms, at head dims 64 and
-    128, on int8 Q codes with a bf16 output (B-pvbf16 also fp16, with
-    native compute and no V mean); every other launch key (B5-fp8-fusedq,
-    the masked and windowed forms among them), D = 256, another Q dtype,
-    an f32 output, B-pvbf16 with bf16 compute, a V mean or a fused Q stays
-    on ``attention.cuh``."""
+    B-pvbf16 (static and online) and their B10 forms, and B5-int8 (not its
+    B10 forms), at head dims 64 and 128, on int8 Q codes with a bf16 output
+    (B-pvbf16 also fp16, with native compute and no V mean); every other
+    launch key (B5-fp8-fusedq, the ring's B5-int8, the masked and windowed
+    forms among them), D = 256, another Q dtype, an f32 output, B-pvbf16
+    with bf16 compute, a V mean or a fused Q stays on ``attention.cuh``."""
     configs = _key_configs()
     assert set(configs) == set(tatt.LAUNCH_KEYS)
     routed = set()
@@ -257,21 +257,29 @@ def test_route_takes_exactly_b6_and_its_ring_forms():
                     assert tatt.config_name(c, rows) == key
                 except ValueError:   # a fused Q has no ring form
                     continue
+            elif base == "B5-int8" and (cd, vmean) == ("native", False):
+                c = dataclasses.replace(c, fuse_q_quant=fused)   # the key names no Q source
+                try:
+                    assert tatt.config_name(c, rows) == key
+                except ValueError:   # a fused Q has no ring form
+                    continue
             elif (cd, vmean, fused) != ("native", False, False):
                 continue
             got = tatt.q8_sm90_route(c, rows, D, q_dtype)
             outs = (torch.bfloat16, torch.float16) if bf16_v else (torch.bfloat16,)
             want = (base in Q8_KEY and D < 256 and q_dtype == torch.int8 and out_dtype in outs
+                    and not (base == "B5-int8" and (key != base or fused))
                     and (not bf16_v or (cd, vmean, fused) == ("native", False, False)))
             assert got == want, (key, D, q_dtype, out_dtype, cd, vmean, fused)
             if got:
                 routed.add(key)
-    assert routed == {"B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online"} | {
+    assert routed == {"B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online",
+                      "B5-int8"} | {
         b + s for b in ("B10-B6-static", "B10-B6-online", "B10-B5-fp8", "B10-B-pvbf16",
                         "B10-B-pvbf16-online")
         for s in ("-offsets", "-kvtrue", "-offsets-kvtrue")}
     assert tatt.Q8_SM90_BASES == {"B6-static": 0, "B6-online": 1, "B5-fp8": 2, "B-pvbf16": 3,
-                                  "B-pvbf16-online": 4}
+                                  "B-pvbf16-online": 4, "B5-int8": 5}
 
 
 def _record(monkeypatch):

@@ -15,8 +15,12 @@ Llama-3-8B width; device time from ``torch.profiler`` and the wrapper's
 host time) and ``B11-int8-causal-mod T=4`` (its T = 4 verify window), as
 ``tools/port_ab.py`` times them, and the unmasked
 B4 and B1 at ``tools/port_ab.py``'s Gemma-7B (head dim 256) and Llama-70B
-GQA shapes (``gemma B4``, ``llama B1``, ...), the B11 rows last; then, per tree
-and row, the median of its readings (``MEDIAN <tree> <json>``).  Each tree
+GQA shapes (``gemma B4``, ``llama B1``, ...), the B11 rows, and last
+``tools/port_ab.py``'s ``online_rows`` (the pre-quantized forms on
+``attention_q8_sm90.cu`` and their ring's ``-kvtrue`` forms, B5-int8, B2,
+B5-fp8-fusedq, the fused-Q B-pvbf16-online and the ``sageattn fp8`` call);
+then, per tree and row, the median of its readings (``MEDIAN <tree>
+<json>``).  Each tree
 builds its own kernels into its own ``build/torch_kernels/``.
 """
 
@@ -67,6 +71,9 @@ def one_reading(tree: str) -> dict:
             q = torch.randn(1, H, T, D, generator=g, device="cuda").bfloat16()
             res.update(ab.decode_rows(torch, cs, label, tatt, "decode_kernel",
                                       lambda: st.sageattn_decode(q, cache)))
+        del k, v, cache
+        torch.cuda.empty_cache()
+        res.update(ab.online_rows(torch, cs, st))
     return res
 
 

@@ -107,10 +107,22 @@ step (one sequence of 8,192 tokens at Llama-3-8B width, its 4 GQA rows
 folded), ``B11-int8-causal-mod T=4`` (its T = 4 verify window) and, over
 8 sequences of 32,768 tokens at the same width, ``B11-int8-causal-mod T=9``
 (the folded T = 9 window, 36 rows a KV head) and ``B11-int8-causal T=25``
-(the unfolded T = 25 window).  Each tree also reports ``ptxas``'s registers
-and spills for ``flash_sm90.cu``, ``attention_sm90.cu``,
-``attention_q8_sm90.cu`` and, where it has them, ``paged_decode_sm90.cu``
-and ``decode_sm90.cu`` (``ptxas``).
+(the unfolded T = 25 window);
+
+and last, the kernels this version of the tool was written for
+(``online_rows``): at CogVideoX1.5 and Llama-70B GQA causal, the
+pre-quantized forms that share ``attention_q8_sm90.cu`` (B6-static,
+B6-online, B5-fp8, B-pvbf16, B-pvbf16-online) and the online forms moved to
+Hopper: B5-int8 (a pre-quantized Q, per-column K scales, int8 P and V), B2,
+B5-fp8-fusedq and the fused-Q B-pvbf16-online (``B-pvbf16-online fused
+Q``), each launch on the inputs the port's quantizers give it, the
+``sageattn(pv_dtype="fp8")`` call (``sageattn fp8``), and the ring's
+``-kvtrue`` forms of the pre-quantized ones on the CogVideoX1.5 chunk pair
+(``B10-... pair``), each key starting with ``online``.  Each tree also
+reports ``ptxas``'s registers and spills for ``flash_sm90.cu``,
+``attention_sm90.cu``, ``attention_q8_sm90.cu`` and, where it has them,
+``attention_online_sm90.cu``, ``paged_decode_sm90.cu`` and
+``decode_sm90.cu`` (``ptxas``).
 
 The tree's ``chip_smoke.py`` provides the inputs, configurations and models.
 """
@@ -216,10 +228,13 @@ def one_tree(tree: str) -> dict:
     torch.cuda.empty_cache()
     with torch.inference_mode():
         res.update(b11_rows(torch, cs, st))
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        res.update(online_rows(torch, cs, st))
     res["ptxas"] = {src: [ln.strip() for ln in _build.build_log.get(src, "").splitlines()
                           if "Used" in ln or "spill" in ln or "entry function" in ln]
                     for src in ("flash_sm90", "attention_sm90", "attention_q8_sm90",
-                                "paged_decode_sm90", "decode_sm90")
+                                "attention_online_sm90", "paged_decode_sm90", "decode_sm90")
                     if src in _build.SOURCES}
     return res
 
@@ -396,6 +411,49 @@ def masked_rows(torch, cs, st):
          (lambda: st.sageattn_varlen(q, k, v, cu, cu, is_causal=True),
           lambda: st.sageattn_varlen(q, k, v, cu, cu, is_causal=True, sliding_window=4096,
                                      attention_sinks=4)))
+    return res
+
+
+# online_rows' launches: (label, AttnConfig fields over the key's own)
+ONLINE_ROWS = (("B6-static", {}), ("B6-online", {}), ("B5-fp8", {}), ("B-pvbf16", {}),
+               ("B-pvbf16-online", {}), ("B5-int8", {}), ("B2", {}), ("B5-fp8-fusedq", {}),
+               ("B-pvbf16-online fused Q", dict(fuse_q_quant=True, fold_k_scale=True)))
+
+
+def online_rows(torch, cs, st):
+    """The kernel ms of each of ``ONLINE_ROWS`` at CogVideoX1.5 and
+    Llama-70B GQA causal, ``sageattn(pv_dtype="fp8")``'s call there, and the
+    ring's ``-kvtrue`` forms of the pre-quantized rows on the CogVideoX1.5
+    chunk pair (a full chunk's true length on the device, folded K scales,
+    no V mean); every key starts with ``online``, apart from the earlier
+    rows of the same configurations."""
+    from sageattention_tpu_torch.ops.attention import attention_kernel
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for shape in ("cog", "llama"):
+        B, Hq, Hk, S, D, causal = CASES[shape]
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+        for label, extra in ONLINE_ROWS:
+            cfg = dataclasses.replace(cs.attn_cfg(torch, label.split(" ")[0], D, causal), **extra)
+            xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+            res[f"online {shape} {label}"] = time_fn(lambda: attention_kernel(*xs, cfg, **kw),
+                                                     warmup=3, reps=20) * 1e3
+            del xs, kw
+        res[f"online {shape} sageattn fp8"] = time_fn(
+            lambda: st.sageattn(q, k, v, is_causal=causal, pv_dtype="fp8"), warmup=2,
+            reps=10) * 1e3
+        del q, k, v
+        torch.cuda.empty_cache()
+    B, Hq, Hk, S, D = 1, 48, 48, 5120, 64
+    q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 3)
+    for name in ("B6-static", "B6-online", "B5-fp8", "B-pvbf16", "B-pvbf16-online"):
+        cfg = dataclasses.replace(cs.attn_cfg(torch, name, D, False), fold_k_scale=True,
+                                  fuse_v_mean=False, kv_len_dynamic=True)
+        xs, kw = cs.kernel_args(torch, cfg, q, k, v)
+        kw.pop("v_mean", None)
+        kw["kv_true"] = torch.tensor([S], dtype=torch.int32, device="cuda")
+        res[f"online B10-{name}-kvtrue pair"] = time_fn(lambda: attention_kernel(*xs, cfg, **kw),
+                                                 warmup=3, reps=20) * 1e3
     return res
 
 
