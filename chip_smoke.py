@@ -142,9 +142,10 @@ Phases (any failure exits non-zero):
    tiles, ``kv_len < Sk``, causal with Sq < Sk, NHD strides, a batch of two
    with sliced heads, a kv length of whole tiles and a one-column tail;
 13. C1 and C2 bf16 with no mask and no window on their Hopper kernels
-   (``csrc/backward_sm90.cu``; slice 9; the window, bool and head dim 256
-   forms stay on ``csrc/backward.cu``), each shape counted on its own,
-   after ``ptxas``'s report for the source (no spill allowed):
+   (``csrc/backward_sm90.cu``; slice 9; head dim 256 stays on
+   ``csrc/backward.cu``, the window and bool forms are phase 22's), each
+   shape counted on its own (``ptxas``'s report for the source is printed
+   after the build, and a spill fails the run):
    ``attention_backward`` from the port's flash forward on realistic inputs
    at the Llama-3-8B-width fine-tune's shape (1, 32/8, 8,192, 128, causal)
    and the CogVideoX1.5 DiT's (1, 48, 17,776, 64); the ring's per-pair form
@@ -251,7 +252,21 @@ Phases (any failure exits non-zero):
    ``KERNEL_BAR``: lengths 0, 1, a tile boundary and one past it, a bucket
    shorter than the cache, B = 3 with per-sequence V scales and the lse, a
    window longer than the length, folded T = 4 and T = 9 windows, an
-   unfolded T = 25 window (2 GQA heads a block), 64 folded rows and 65.
+   unfolded T = 25 window (2 GQA heads a block), 64 folded rows and 65;
+22. (run after phase 16) C1 and C2 bf16 under a window (sinks too) or a
+   bool mask on ``csrc/backward_sm90.cu``'s masked kernels (slice 18): at
+   9e's shapes (Mistral-7B's W = 4096 window with 0 and 4 sinks, the
+   left-padded Llama-3-8B batch), ``attention_backward`` counted on its own
+   (``sage_bwd_sm90_masked`` called, ``sage_attn_bwd`` never), the kernels
+   on all heads against the plain version on the first and last heads,
+   each kernel's own time beside its bound, the call's time with the tile
+   lists' glue, the glue alone, the library's backward and
+   ``backward.cu``'s time on the same inputs; then the edge cases at head
+   dims 64 and 128 on every head (windows of 1, 37 and 200, 70 sinks, a
+   tail, GQA 4:1, masks with dead rows and tiles, causal and not, per
+   head, a 128 x 128 block-sparse mask) and a tail with f32 outputs through
+   ``attention_backward`` against the same call on the CPU.  Its rows are
+   the masked keys' (9f checks their launches but leaves the times to it).
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -353,7 +368,7 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "attention_online_sm90",
-                   "paged_decode_sm90", "decode_sm90"):
+                   "paged_decode_sm90", "decode_sm90", "backward_sm90"):
         sm90_ptxas(source)   # registers; a spill fails the run
 
     def timed_phase(what, fn, *args):
@@ -380,6 +395,7 @@ def main() -> int:
     with torch.no_grad():
         kernels += timed_phase("phase 13", run_bwd_sm90, torch, st, totals)
         kernels += timed_phase("phase 16", run_bwd_q8_sm90, torch, st, totals)
+        kernels += timed_phase("phase 22", run_bwd_masked_sm90, torch, st, totals)
     # phases 14, 15, 17 and 18's rows replace the earlier ones of their keys
     with torch.inference_mode():
         new = timed_phase("phase 14", run_fwd_sm90, torch, st, totals)
@@ -2526,8 +2542,8 @@ def backward_kernel_checks(torch, seen, totals):
     length (calc_diff <= KERNEL_BAR per gradient), the gradients of KV
     head 0 against the f32 exact ones, and, for the configurations that
     stay on ``backward.cu``, the kernel's time at the path's full shape,
-    its bound and, for bf16, the library's backward (phases 13 and 16 time
-    those on ``backward_sm90.cu`` and ``backward_q8_sm90.cu``)."""
+    its bound and, for bf16, the library's backward (phases 13, 16 and 22
+    time those on ``backward_sm90.cu`` and ``backward_q8_sm90.cu``)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
     entries, failures, exact_done = [], [], set()
@@ -2581,7 +2597,7 @@ def backward_kernel_checks(torch, seen, totals):
                 grad_check(torch, f"{cfg} (C1 + C2) from the exact forward, sequence {b}, "
                                   f"q heads 0-{G - 1}",
                            (got_b[0][0], got_b[1][0, 0], got_b[2][0, 0]), ref, quant)
-        if bwd_source(name, D) != SRC_BWD:   # timed, with its JSON entry, in phase 13 or 16
+        if bwd_source(name, D) != SRC_BWD:   # timed, with its JSON entry, in phase 13, 16 or 22
             continue
         pf = tbwd.prepare(q, k, v, o, lse, do, sm_scale=kw["sm_scale"], quantized=quant,
                           attn_mask=mask)
@@ -3933,17 +3949,18 @@ def bwd_inputs(torch, B, Hq, Hk, Sq, Sk, D, causal, seed):
 
 
 def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=False,
-                 quantized=False):
-    """C1 and C2 (int8 with ``quantized``) launched once each on all heads
-    (f32 outputs), each gradient held to ``attention_backward_plain`` at
+                 quantized=False, window=0, sinks=0, attn_mask=None):
+    """C1 and C2 (int8 with ``quantized``; under a ``window`` with ``sinks``
+    or a bool ``attn_mask``) launched once each on all heads (f32
+    outputs), each gradient held to ``attention_backward_plain`` at
     KERNEL_BAR on the first q heads of kv head 0 and the last q head with
     the last kv head (or, with ``every_head``, on all of them).  Returns
     (max_abs_err, plain ms of the first sample)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import calc_diff
     pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=q.shape[-1] ** -0.5, di=di,
-                      quantized=quantized)
-    pa.update(causal=causal, out_dtype=torch.float32)
+                      quantized=quantized, attn_mask=attn_mask)
+    pa.update(causal=causal, window=window, sinks=sinks, out_dtype=torch.float32)
     got = tbwd.attention_backward_kernel(**pa)
     Hq, Hk = q.shape[1], k.shape[1]
     parts = [(slice(0, Hq), slice(0, Hk))]
@@ -3955,6 +3972,8 @@ def bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, di=None, every_head=F
     for hs, ks in parts:
         sub = dict(pa, **{n: pa[n][:, hs] for n in ("q", "do", "lse2", "di", "qs") if n in pa},
                    **{n: pa[n][:, ks] for n in ("k", "v", "ks") if n in pa})
+        if attn_mask is not None and attn_mask.shape[1] > 1:
+            sub["mask"] = pa["mask"][:, hs]
         plain, ms = timed_call(torch, lambda: tbwd.attention_backward_plain(**sub))
         plain_ms = ms if plain_ms is None else plain_ms
         ds = [calc_diff(a[:, hs], b) for a, b in zip(got, plain)]
@@ -4022,8 +4041,8 @@ def sm90_ptxas(source="backward_sm90"):
 def run_bwd_sm90(torch, st, totals):
     """Phase 13 (slice 9): C1 and C2 bf16 with no mask and no window on
     ``csrc/backward_sm90.cu`` (:func:`bwd_sm90_phase`).  Returns the JSON
-    entries of the four routed launch keys."""
-    sm90_ptxas("backward_sm90")
+    entries of the four routed launch keys (``ptxas``'s report for the
+    source is printed after the build)."""
     return bwd_sm90_phase(torch, totals, quantized=False)
 
 
@@ -4124,6 +4143,234 @@ def bwd_sm90_phase(torch, totals, quantized):
                             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": lib,
                             "shape": f"{what}{extra}; plain (C1 + C2) on the first and last q "
                                      f"heads; {beside}; " + "; ".join(ring_text)})
+    return entries
+
+
+# ------------------------- slice 18: the masked backward on Hopper ----
+
+# C1/C2's window, sink and bool-mask forms at the shapes of 9e's gradient
+# paths: Mistral-7B-v0.1's W = 4096 window with 0 and 4 sinks, and phase 7's
+# left-padded Llama-3-8B batch, causal, with its bool mask
+def bwd_masked_paths():
+    H, Hk, D, S, W = TRAIN["mistral"]
+    B, Hp, Hpk, Sp, Dp = TRAIN["padded"]
+    return {f"Mistral-7B window {W}": ((1, H, Hk, S, D), dict(window=W)),
+            f"Mistral-7B window {W}, 4 sinks": ((1, H, Hk, S, D), dict(window=W, sinks=4)),
+            "Llama-3-8B left-padded batch": ((B, Hp, Hpk, Sp, Dp), dict(mask="pad"))}
+
+
+# the edges of the masked walks at head dims 64 and 128, on every head: B,
+# Hq, Hk, S, causal, options (a window under one tile and off the tiles (W =
+# 1 alone keeps a row's own key, where dS is 0 and both sides' rounding noise),
+# sinks across a 64-row slice, a tail off the 128- and 192-row blocks, GQA
+# 4:1; bool masks with dead rows and dead tiles, causal and not; a 128 x 128
+# block-sparse mask, whose mask rows a 192-row block at D = 64 cuts in two)
+BWD_MASKED_EDGES = {"W = 1, 4 sinks": (1, 2, 2, 320, True, dict(window=1, sinks=4)),
+                    "W = 37, tail (300 of 320)": (1, 2, 2, 300, True, dict(window=37)),
+                    "W = 200, GQA 4/1": (1, 4, 1, 448, True, dict(window=200)),
+                    "W = 100, 70 sinks": (1, 2, 2, 448, True, dict(window=100, sinks=70)),
+                    "left-padded, causal": (2, 2, 2, 448, True, dict(mask="pad")),
+                    "dead rows and tiles": (1, 2, 1, 300, False, dict(mask="holes")),
+                    "dead rows and tiles, causal, per head": (1, 2, 2, 320, True,
+                                                              dict(mask="holes", per_head=True)),
+                    "128 x 128 block-sparse": (1, 2, 2, 512, False, dict(mask="blocks"))}
+
+
+def bwd_keep_mask(torch, kind, B, H, S, seed, lens=None):
+    """A bool keep-mask ``[B, H, S, S]`` on the card: "pad" keeps the last
+    ``lens[b]`` keys of sequence b (by default ``S - S * b / (2 B)``),
+    "holes" keeps 85% of pairs at random with rows 0-69 and kv columns
+    128-191 dead, "blocks" keeps ~40% of 128 x 128 blocks."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if kind == "pad":
+        lens = lens or [S - S * b // (2 * B) for b in range(B)]
+        pad = S - torch.tensor(lens, device="cuda")
+        keep = torch.arange(S, device="cuda")[None, None, None, :] >= pad[:, None, None, None]
+        return keep.expand(B, H, S, S).contiguous()
+    if kind == "holes":
+        keep = torch.rand(B, H, S, S, generator=g, device="cuda") < 0.85
+        keep[:, :, :70] = False
+        keep[..., 128:192] = False
+        return keep
+    n = -(-S // 128)
+    blocks = torch.rand(B, H, n, n, generator=g, device="cuda") < 0.4
+    return blocks.repeat_interleave(128, 2).repeat_interleave(128, 3)[..., :S, :S].contiguous()
+
+
+def exact_fwd(torch, q, k, v, keep):
+    """f32 attention (TF32 off) under a keep-mask ``[B, 1|H, Sq, Sk]``: ``(o
+    bf16, lse f32)``, lse -inf on a row that keeps no key."""
+    from sageattention_tpu_torch.ops.reference import _no_tf32
+    G = q.shape[1] // k.shape[1]
+    kf, vf = (x.float().repeat_interleave(G, 1) for x in (k, v))
+    with _no_tf32():
+        s = q.float() @ kf.transpose(-1, -2) * q.shape[-1] ** -0.5
+        s = s.masked_fill(~keep, -float("inf"))
+        lse = torch.logsumexp(s, -1)
+        p = torch.exp(s - torch.where(torch.isfinite(lse), lse, 0)[..., None])
+        return (p @ vf).bfloat16(), lse
+
+
+def on_old_bwd(fn):
+    """``fn()`` with the masked bf16 forms sent to ``backward.cu`` (the route
+    to ``backward_sm90.cu``'s masked kernels turned off for the call)."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    real = tbwd.bwd_sm90_route
+    tbwd.bwd_sm90_route = lambda quantized, masked, window, D: (
+        real(quantized, masked, window, D) and not (masked or window))
+    try:
+        return fn()
+    finally:
+        tbwd.bwd_sm90_route = real
+
+
+def masked_entry_ms(torch, pa, kernel):
+    """The masked kernel's own time: ``sage_bwd_sm90_masked`` launched again
+    with the arguments that one ``attention_backward_kernel`` call handed
+    it (its tile lists held), without the glue that builds
+    them.  Returns ``(ms, that call's gradients)``."""
+    from sageattention_tpu_torch.ops import _build
+    from sageattention_tpu_torch.ops import backward as tbwd
+    held, calls = [], []
+    real_args, real_call = tbwd._masked_args, _build.call
+    tbwd._masked_args = lambda *a: held.append(real_args(*a)) or held[-1]
+    _build.call = lambda fn, dev, *a: calls.append((fn, dev, a)) or real_call(fn, dev, *a)
+    try:
+        out = tbwd.attention_backward_kernel(**pa, kernels=(kernel,))
+    finally:
+        tbwd._masked_args, _build.call = real_args, real_call
+    (fn, dev, args), = calls
+    check(fn == "sage_bwd_sm90_masked", f"{kernel} launched {fn}")
+    return kernel_ms(lambda: real_call(fn, dev, *args)), out
+
+
+def run_bwd_masked_sm90(torch, st, totals):
+    """Phase 22 (slice 18): C1 and C2 bf16 under a window (sinks too) or a
+    bool mask on ``csrc/backward_sm90.cu``'s masked kernels.  At 9e's shapes
+    (:func:`bwd_masked_paths`), from ``sageattn``'s forward with the same
+    band or mask: ``attention_backward``, counted on its own (one C1 and
+    one C2 launch, ``sage_bwd_sm90_masked`` called and ``sage_attn_bwd``
+    never), C1 and C2 on all heads against the plain version on the first
+    and last q heads, each kernel's time (:func:`masked_entry_ms`: its C
+    entry alone) beside its bound over the kept pairs, the call's time with
+    the wrapper's glue, the library's backward, ``backward.cu``'s time on
+    the same inputs (the route turned off for the call, glue included, as
+    9f timed it before), and the tile lists' glue alone; then
+    :data:`BWD_MASKED_EDGES` at head dims 64 and 128 on every head from the
+    exact forward, and a tail with f32 outputs through
+    ``attention_backward`` against the same call on the CPU.  Returns the
+    JSON entries of the four masked keys."""
+    from sageattention_tpu_torch.ops import backward as tbwd
+    from sageattention_tpu_torch.utils.testing import calc_diff, time_fn
+    calls = {"sage_bwd_sm90_masked": True, "sage_attn_bwd": False}
+    rows, errs = {}, []
+    for i, (label, ((B, Hq, Hk, S, D), opt)) in enumerate(bwd_masked_paths().items()):
+        q, k, v = realistic_qkv(torch, B, Hq, Hk, S, D, SEED + 120 + i)
+        do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(
+            SEED + 130 + i), device="cuda").bfloat16()
+        if opt.get("mask"):
+            keep = bwd_keep_mask(torch, "pad", B, 1, S, 0, lens=TRAIN["padded_lens"])
+            fkw, kw, suffix = dict(attn_mask=keep), dict(attn_mask=keep), "-causal-bool"
+        else:
+            fkw = dict(sliding_window=opt["window"], attention_sinks=opt.get("sinks", 0))
+            kw, suffix = dict(window=opt["window"], sinks=opt.get("sinks", 0)), "-window"
+        o, lse = st.sageattn(q, k, v, is_causal=True, return_lse=True, **fkw)
+        what = f"{label} ({B},{Hq}/{Hk},{S},{D})"
+        keys = (f"C1-bf16{suffix}", f"C2-bf16{suffix}")
+        out, _ = counted_path(torch, f"{what}: attention_backward", keys, {}, totals,
+                              lambda: tbwd.attention_backward(q, k, v, o, lse, do,
+                                                              sm_scale=D ** -0.5, is_causal=True,
+                                                              **kw), entries=calls)
+        exact_counts(what, read_counts(), dict.fromkeys(keys, 1))
+        check(all(bool(torch.isfinite(x).all()) for x in out)
+              and [tuple(x.shape) for x in out] == [tuple(q.shape), tuple(k.shape), tuple(v.shape)],
+              f"{what}: attention_backward's gradients finite, of the input shapes")
+        del out
+        err, plain_ms = bwd_vs_plain(torch, what, q, k, v, o, lse, do, True, **kw)
+        errs.append(err)
+        pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5, attn_mask=kw.get("attn_mask"))
+        pa.update(causal=True, window=kw.get("window", 0), sinks=kw.get("sinks", 0),
+                  out_dtype=torch.bfloat16)
+        pairs = bwd_pairs(torch, B, Hq, S, S, dict(kw, is_causal=True))
+        res = {}
+        for kernel in ("C1", "C2"):
+            run = lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,))  # noqa: E731
+            ms, got = masked_entry_ms(torch, pa, kernel)
+            wrapper = kernel_ms(run)
+            old = on_old_bwd(lambda: kernel_ms(run))
+            reads = [pa[n] for n in ("q", "k", "v", "do", "lse2", "di", "mask") if n in pa]
+            bound = bwd_bound(kernel, False, pairs, D, nbytes(*reads, *(x for x in got
+                                                                       if x is not None)))
+            res[kernel] = (ms, old, bound, wrapper)
+            del got
+        Sqp = pa["q"].shape[2]
+        glue = time_fn(lambda: tbwd._masked_args(("C1", "C2"), Sqp, Sqp, D, True,
+                                                 pa["window"], pa["sinks"], pa.get("mask"),
+                                                 q.device), warmup=2, reps=10) * 1e3
+        lib = library_bwd_ms(torch, q, k, v, do, dict(kw, is_causal=True, sm_scale=D ** -0.5))
+        print(f"     C1/C2 bf16{suffix} at {what}: " + ", ".join(
+            f"{kn} {ms:.3f} ms (with the wrapper's glue {wr:.3f}; backward.cu {old:.3f}; bound "
+            f"{b[0]:.3f}, {b[1]})" for kn, (ms, old, b, wr) in res.items())
+              + f", tile lists {glue:.3f} ms, library (C1 + C2) {lib:.3f} ms, "
+              f"{pairs} kept pairs", flush=True)
+        rows.setdefault(suffix, []).append((what, res, glue, lib, plain_ms))
+        del q, k, v, o, lse, do, pa
+        torch.cuda.empty_cache()
+    for D in (64, 128):
+        for j, (label, (B, Hq, Hk, S, causal, opt)) in enumerate(BWD_MASKED_EDGES.items()):
+            what = f"{label} ({B},{Hq}/{Hk},{S}), D={D}, causal={causal}"
+            g = torch.Generator(device="cuda").manual_seed(SEED + 140 + j)
+            q, do = (torch.randn(B, Hq, S, D, generator=g, device="cuda").bfloat16()
+                     for _ in range(2))
+            k, v = (torch.randn(B, Hk, S, D, generator=g, device="cuda").bfloat16()
+                    for _ in range(2))
+            kw = {n: opt[n] for n in ("window", "sinks") if n in opt}
+            r = torch.arange(S, device="cuda")
+            keep = ((r[None, :] <= r[:, None]) if causal else torch.ones(
+                S, S, dtype=torch.bool, device="cuda"))[None, None]
+            if kw:
+                keep = keep & band_keep(torch, kw["window"], kw.get("sinks", 0), S)(0, S)
+            if opt.get("mask"):
+                kw["attn_mask"] = bwd_keep_mask(torch, opt["mask"], B,
+                                                Hq if opt.get("per_head") else 1, S, j)
+                keep = keep & kw["attn_mask"]
+            o, lse = exact_fwd(torch, q, k, v, keep)
+            keys = tuple(tbwd.config_name(c, False, causal, kw.get("window", 0),
+                                          "attn_mask" in kw) for c in ("C1", "C2"))
+            counted_path(torch, what, keys, {}, totals,
+                         lambda: tbwd.attention_backward(q, k, v, o, lse, do, sm_scale=D ** -0.5,
+                                                         is_causal=causal, **kw), entries=calls)
+            errs.append(bwd_vs_plain(torch, what, q, k, v, o, lse, do, causal, every_head=True,
+                                     **kw)[0])
+            if label.startswith("W = 37"):   # the whole wrapper, f32 out, against the CPU
+                got = tbwd.attention_backward(q, k, v, o, lse, do, sm_scale=D ** -0.5,
+                                              is_causal=causal, out_dtype=torch.float32, **kw)
+                ref = tbwd.attention_backward(*(x.cpu() for x in (q, k, v, o, lse, do)),
+                                              sm_scale=D ** -0.5, is_causal=causal,
+                                              out_dtype=torch.float32, **kw)
+                ds = [calc_diff(a.cpu(), b) for a, b in zip(got, ref)]
+                check(all(d <= KERNEL_BAR for d in ds) and all(a.dtype == torch.float32
+                                                               for a in got),
+                      f"{what} through attention_backward (f32 out) vs the same call on the "
+                      "CPU: dq/dk/dv calc_diff " + "/".join(f"{d:.3e}" for d in ds)
+                      + f" <= {KERNEL_BAR}")
+    entries = []
+    for suffix, runs in rows.items():
+        what, res, glue, lib, plain_ms = runs[0]
+        more = "; ".join(f"{w}: C1 {r['C1'][0]:.3f} / C2 {r['C2'][0]:.3f} ms (backward.cu "
+                         f"{r['C1'][1]:.3f} / {r['C2'][1]:.3f}), glue {gl:.3f}, library {lb:.3f}"
+                         for w, r, gl, lb, _ in runs[1:])
+        for kernel in ("C1", "C2"):
+            ms, old, bound, wrapper = res[kernel]
+            entries.append({"name": f"{kernel}-bf16{suffix}", "route": "cuda",
+                            "source": SRC_BWD_SM90, "replaces": TPU_KERNELS[kernel],
+                            "launches": 0, "max_abs_err": max(errs), "ms": ms,
+                            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                            "library_ms": lib,
+                            "shape": f"{what}; with the wrapper's glue {wrapper:.3f} ms; "
+                                     f"backward.cu {old:.3f} ms; tile lists {glue:.3f} ms; "
+                                     f"plain (C1 + C2) on the first and last q heads; library: "
+                                     f"C1 + C2" + (f"; {more}" if more else "")})
     return entries
 
 

@@ -1,7 +1,8 @@
 // The masked forms of the Hopper forwards (flash_sm90.cu's MASKED mode:
 // B4-window and B4-bool; attention_sm90.cu's MASKED instantiations: B1's
-// window, bool-mask and segment forms): the block's list of kv tiles and the
-// per-element masks of a partly live tile.
+// window, bool-mask and segment forms) and of the bf16 backward
+// (backward_sm90.cu's masked C1 and C2): the block's list of streamed tiles
+// and the per-element masks of a partly live tile.
 //
 // The wrapper (ops/attention.py `tile_classes`, `tile_list`) gives each
 // block of BM query rows the kv tiles of BN columns in which some score
@@ -117,6 +118,38 @@ __device__ __forceinline__ void keep_bits(const Masks& m, int b, int hq, int k0,
     if (m.mask && ((kA | kB) & bit)) {
       if (mA == nullptr || mA[col] == 0) kA &= ~bit;
       if (mB == nullptr || mB[col] == 0) kB &= ~bit;
+    }
+  }
+}
+
+// The transpose of keep_bits<64>, for backward_sm90.cu's C1, whose
+// accumulators hold S^T: rows rA, rB (= rA + 8) are kv rows and bit 2 j + h
+// keeps q row q0 + 8 j + 2 q4 + h.  Causal keeps q >= kv; the band keeps
+// q <= kv + W - 1 unless kv < sinks (a sink keeps every q from kv on): at
+// most one run a row, built from its ends.  With `data` (class 1) the bool
+// mask [B, Hm, Sq, Sk] cuts further, read in place: for one bit the lanes
+// of a warp read 8 consecutive kv bytes of each of 4 q rows (a transposed
+// copy, whose rows a thread would read along, costs the wrapper a pass over
+// the whole mask and gives each load 8 rows to touch instead of 4).
+__device__ __forceinline__ void keep_bits_t(const Masks& m, int b, int hq, int q0, int causal,
+                                            int rA, int rB, int q4, bool data, uint32_t& kA,
+                                            uint32_t& kB) {
+  auto run = [&](int r) {
+    uint32_t keep = causal ? ~below<64>(r - q0, q4) : ~0u;
+    if (m.window && r >= m.sinks) keep &= below<64>(r + m.window - q0, q4);
+    return keep & 0xFFFFu;
+  };
+  kA = run(rA);
+  kB = run(rB);
+  if (!data || !m.mask) return;
+  const int8_t* base = m.mask + b * m.m_sb + (m.mh ? hq : 0) * m.m_sh + q0 * m.m_ss;
+#pragma unroll 2
+  for (int t = 0; t < 16; ++t) {
+    const uint32_t bit = 1u << t;
+    const int8_t* row = base + (8 * (t >> 1) + 2 * q4 + (t & 1)) * m.m_ss;
+    if ((kA | kB) & bit) {
+      if (row[rA] == 0) kA &= ~bit;
+      if (row[rB] == 0) kB &= ~bit;
     }
   }
 }

@@ -99,6 +99,12 @@ _BWD_ARGS = [_I] * 3 + [_P] * 9 + [_LL] * 3 + [_I] + [_P] * 4 + [_I] * 9 + [_F] 
 # Skp, causal), (fold, dk_fin, dq_fin), stream
 _BWD_SM90_ARGS = [_I] * 2 + [_P] * 9 + [_I] * 7 + [_F] * 3 + [_P]
 
+# sage_bwd_sm90's arguments, then (tile lists, their lengths), (row length,
+# per batch, per head), the blocks' order, (mask, 3 mask strides, per head),
+# (window, sinks), stream
+_BWD_SM90_MASKED_ARGS = (_BWD_SM90_ARGS[:-1] + [_P, _P, _I, _I, _I, _P, _P, _LL, _LL, _LL, _I]
+                         + [_I] * 2 + [_P])
+
 # (which, D), (q8, qd, k8, kd, v, dO, lse2, di, qs, ks), (dk, dv, dq), (out_f32,
 # B, Hq, Hk, Sqp, Skp, causal), (fold, dk_fin, dq_fin), stream
 _BWD_Q8_SM90_ARGS = [_I] * 2 + [_P] * 13 + [_I] * 7 + [_F] * 3 + [_P]
@@ -128,6 +134,7 @@ SIGNATURES = {
     "sage_paged_decode_sm90": ("paged_decode_sm90", _PAGED_SM90_ARGS),
     "sage_attn_bwd": ("backward", _BWD_ARGS),
     "sage_bwd_sm90": ("backward_sm90", _BWD_SM90_ARGS),
+    "sage_bwd_sm90_masked": ("backward_sm90", _BWD_SM90_MASKED_ARGS),
     "sage_bwd_q8_sm90": ("backward_q8_sm90", _BWD_Q8_SM90_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",

@@ -27,12 +27,14 @@ sequences to the kernel's 64-row tiles and the head dim to 64/128/256,
 padded q rows at lse2 = 3e38 so their P is 0; ``D_i``; the int8 codes;
 the GQA group sum in f32) around :func:`attention_backward_kernel` (CUDA
 tensors) or :func:`attention_backward_plain` (CPU tensors).  On the card
-the configurations with no mask and no window at head dims 64 and 128 run
-on Hopper kernels (TMA, ``wgmma``, warpgroups taking turns): the bf16 ones
-(:func:`bwd_sm90_route`) ``csrc/backward_sm90.cu``, the int8 ones
-(:func:`bwd_q8_sm90_route`) ``csrc/backward_q8_sm90.cu``, whose dK and dQ
-products read the codes dequantized by :func:`dequant_rows`; every other
-one runs ``csrc/backward.cu``.  The plain version has no running max and no
+head dims 64 and 128 run on Hopper kernels (TMA, ``wgmma``, warpgroups
+taking turns): every bf16 configuration (:func:`bwd_sm90_route`) on
+``csrc/backward_sm90.cu``, whose window, sink and bool-mask forms walk
+tile lists built on the device (:func:`bwd_tile_lists`); the int8 ones
+with no mask and no window (:func:`bwd_q8_sm90_route`) on
+``csrc/backward_q8_sm90.cu``, whose dK and dQ products read the codes
+dequantized by :func:`dequant_rows`; the int8 window and mask forms and
+head dim 256 run ``csrc/backward.cu``.  The plain version has no running max and no
 per-tile rounding, so it stands for all three whatever their tiles.  The two kernels are counted
 per configuration in ``attention_backward_kernel.launches`` (``LAUNCHES``)
 under keys
@@ -41,6 +43,7 @@ under keys
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import torch
@@ -48,7 +51,8 @@ import torch.nn.functional as F
 
 from . import _build
 from . import quant as quant_ops
-from .attention import _F32, _per_q_head, mask_tile_table
+from .attention import (_F32, AttnConfig, _per_q_head, mask_tile_table, tile_classes,
+                        tile_list)
 from .reference import _no_tf32
 
 LOG2E = quant_ops.LOG2E
@@ -172,10 +176,60 @@ LAUNCHES = {name: 0 for name in LAUNCH_KEYS}
 
 def bwd_sm90_route(quantized: bool, masked: bool, window: int, D: int) -> bool:
     """Does C1/C2 in this configuration run ``csrc/backward_sm90.cu``?  The
-    bf16 form with no mask and no window, causal or not, at head dims 64
-    and 128 (``D`` padded); the int8 S-recompute, the window, the bool mask
-    and head dim 256 stay on ``csrc/backward.cu``."""
-    return not quantized and not masked and not window and D in (64, 128)
+    bf16 form at head dims 64 and 128 (``D`` padded), causal or not, with or
+    without a window (sinks too) or a bool mask: ``sage_bwd_sm90`` with no
+    mask and no window, ``sage_bwd_sm90_masked`` otherwise.  The int8
+    S-recompute and head dim 256 run elsewhere."""
+    return not quantized and D in (64, 128)
+
+
+def bwd_sm90_block_rows(D: int) -> int:
+    """Rows a block of ``csrc/backward_sm90.cu`` owns: three 64-row
+    warpgroups at head dim 64, two at 128."""
+    return (3 if D == 64 else 2) * TILE
+
+
+def _longest_first(counts):
+    """The blocks ``[n_blocks]`` int32, longest list (over batch and heads)
+    first: the launch order of the masked kernels."""
+    longest = counts.reshape(-1, counts.shape[-1]).amax(0)
+    return torch.argsort(longest, descending=True, stable=True).to(torch.int32)
+
+
+def bwd_tile_lists(Sqp, Skp, D, causal, window=0, sinks=0, mask=None, device=None):
+    """The masked walks of ``csrc/backward_sm90.cu``, on ``device`` (by
+    default the CPU): the forward's tile classes
+    (``ops.attention.tile_classes`` of the causal band, its sinks and the
+    bool mask ``[B, Hm, Sqp, Skp]``, at 64-row q slices and 64-column kv
+    tiles, over every row and column: the kernels mask no tail).  C2's
+    blocks own q rows and walk kv tiles, the forward's orientation; C1's own
+    kv rows and walk q tiles, so its lists come from the transposed
+    classes.  Returns ``{"C1": (tiles, counts, order), "C2": ...}``:
+    ``ops.attention.tile_list``'s lists (shared over batch and heads where
+    the masks are) and the blocks' launch order, longest list first.  Lists
+    of the band alone depend on the shape only and are built once (a
+    fine-tune's every layer asks for the same)."""
+    if mask is None:
+        return _band_lists(Sqp, Skp, D, causal, window, sinks, torch.device(device or "cpu"))
+    return _tile_lists(Sqp, Skp, D, causal, window, sinks, mask, device)
+
+
+def _tile_lists(Sqp, Skp, D, causal, window, sinks, mask, device):
+    keep = None if mask is None else (mask if mask.dtype == torch.bool else mask != 0)
+    cfg = AttnConfig(causal=causal, window=window, sinks=sinks, kv_len=Skp,
+                     masked="none" if keep is None else "bool")
+    cls = tile_classes(cfg, Sqp, Skp, TILE, attn_mask=keep, device=device)
+    nwg = bwd_sm90_block_rows(D) // TILE
+    lists = {}
+    for kernel, c in (("C1", cls.transpose(-1, -2).contiguous()), ("C2", cls)):
+        tiles, counts = tile_list(c, nwg)
+        lists[kernel] = (tiles, counts, _longest_first(counts))
+    return lists
+
+
+@functools.lru_cache(maxsize=32)
+def _band_lists(Sqp, Skp, D, causal, window, sinks, device):
+    return _tile_lists(Sqp, Skp, D, causal, window, sinks, None, device)
 
 
 def bwd_q8_sm90_route(quantized: bool, masked: bool, window: int, D: int) -> bool:
@@ -191,12 +245,41 @@ def _aligned16(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _ptr(x):
+    """A tensor's data pointer, or None."""
+    return None if x is None else x.data_ptr()
+
+
+def _masked_args(kernels, Sqp, Skp, D, causal, window, sinks, mask, device):
+    """Each masked kernel's trailing arguments of ``sage_bwd_sm90_masked``
+    (by ``which``: 1 C1, 2 C2): its tile lists, their row length, whether
+    they step over batch and heads, the blocks' launch order
+    (:func:`bwd_tile_lists`); the bool mask as int8, read in place by both
+    kernels, with its strides and whether it steps over heads (or null);
+    the window and sinks."""
+    lists = bwd_tile_lists(Sqp, Skp, D, causal, window, sinks, mask, device)
+    margs = (None, 0, 0, 0, 0)
+    if mask is not None:
+        m = (mask if mask.dtype == torch.bool else mask != 0)
+        m = (m if m.stride(-1) == 1 else m.contiguous()).view(torch.int8)
+        margs = (m, *m.stride()[:3], int(m.shape[1] > 1))
+    per = {}
+    for which, kernel in ((1, "C1"), (2, "C2")):
+        if kernel in kernels:
+            tiles, counts, order = lists[kernel]
+            per[which] = (tiles, counts, tiles.shape[-1], int(tiles.shape[0] > 1),
+                          int(tiles.shape[1] > 1), order, *margs, window, sinks)
+    return per
+
+
 def attention_backward_kernel(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, causal,
                               window=0, sinks=0, qs=None, ks=None, mask=None,
                               out_dtype=torch.float32, kernels=("C1", "C2")):
     """Launch C1 and C2 on CUDA tensors; same arguments and returns as
     :func:`attention_backward_plain`.  A configuration that
-    :func:`bwd_sm90_route` takes launches ``sage_bwd_sm90``, one that
+    :func:`bwd_sm90_route` takes launches ``sage_bwd_sm90`` with no mask and
+    no window, ``sage_bwd_sm90_masked`` with either (:func:`_masked_args`),
+    one that
     :func:`bwd_q8_sm90_route` takes ``sage_bwd_q8_sm90`` (after
     :func:`dequant_rows` of the codes its kernels read), each raising if it
     cannot, with no fallback; the rest launch ``sage_attn_bwd``, under the
@@ -221,38 +304,42 @@ def attention_backward_kernel(q, k, v, do, lse2, di, *, fold, dk_fin, dq_fin, ca
     dk = torch.empty((B, Hq, Skp, D), dtype=odt, device=q.device)
     dv = torch.empty_like(dk)
     dq = torch.empty((B, Hq, Sqp, D), dtype=odt, device=q.device)
-    m = live = None
-    m_strides, Hm = (0, 0, 0), 1
-    if mask is not None:
-        m = mask.view(torch.int8) if mask.dtype == torch.bool else mask.to(torch.int8)
-        m = m.contiguous()
-        m_strides, Hm = m.stride()[:3], m.shape[1]
-        live = mask_tile_table(m)
-    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     outs = [dk.data_ptr(), dv.data_ptr(), dq.data_ptr()]
+    per = {1: (), 2: ()}   # each kernel's own trailing arguments
     if bwd_sm90_route(quant, mask is not None, window, D):
         q, k, v, do, lse2, di = (_aligned16(x) for x in (q, k, v, do, lse2, di))
         fn = "sage_bwd_sm90"
         common = [D, *(x.data_ptr() for x in (q, k, v, do, lse2, di)), *outs, int(out_f32), B,
                   Hq, Hk, Sqp, Skp, int(causal), _F32(fold), _F32(dk_fin), _F32(dq_fin)]
+        if mask is not None or window:
+            fn = "sage_bwd_sm90_masked"
+            per = _masked_args(kernels, Sqp, Skp, D, causal, window, sinks, mask, q.device)
     elif bwd_q8_sm90_route(quant, mask is not None, window, D):
         # C1 reads q dequantized, C2 k
         qd = dequant_rows(q, qs) if "C1" in kernels else None
         kd = dequant_rows(k, ks) if "C2" in kernels else None
         q, k, v, do, lse2, di, qs, ks = (_aligned16(x) for x in (q, k, v, do, lse2, di, qs, ks))
         fn = "sage_bwd_q8_sm90"
-        common = [D, q.data_ptr(), ptr(qd), k.data_ptr(), ptr(kd),
+        common = [D, q.data_ptr(), _ptr(qd), k.data_ptr(), _ptr(kd),
                   *(x.data_ptr() for x in (v, do, lse2, di, qs, ks)), *outs, int(out_f32), B,
                   Hq, Hk, Sqp, Skp, int(causal), _F32(fold), _F32(dk_fin), _F32(dq_fin)]
     else:
+        m = live = None
+        m_strides, Hm = (0, 0, 0), 1
+        if mask is not None:
+            m = mask.view(torch.int8) if mask.dtype == torch.bool else mask.to(torch.int8)
+            m = m.contiguous()
+            m_strides, Hm = m.stride()[:3], m.shape[1]
+            live = mask_tile_table(m)
         fn = "sage_attn_bwd"
         common = [int(quant), D, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                  lse2.data_ptr(), di.data_ptr(), ptr(qs), ptr(ks), ptr(m), *m_strides, Hm,
-                  ptr(live), *outs, int(out_f32), B, Hq, Hk, Sqp, Skp, int(causal), window,
+                  lse2.data_ptr(), di.data_ptr(), _ptr(qs), _ptr(ks), _ptr(m), *m_strides, Hm,
+                  _ptr(live), *outs, int(out_f32), B, Hq, Hk, Sqp, Skp, int(causal), window,
                   sinks, _F32(fold), _F32(dk_fin), _F32(dq_fin)]
     for which, kernel in ((1, "C1"), (2, "C2")):
         if kernel in kernels:
-            _build.call(fn, q.device, which, *common)
+            _build.call(fn, q.device, which, *common, *(
+                _ptr(x) if isinstance(x, torch.Tensor) else x for x in per[which]))
             LAUNCHES[config_name(kernel, quant, causal, window, mask is not None)] += 1
     dq = dq.to(out_dtype) if "C2" in kernels else None
     if "C1" not in kernels:
@@ -284,7 +371,7 @@ def prepare(q, k, v, o, lse, do, *, sm_scale, quantized=False, di=None, attn_mas
         args["q"], args["qs"] = quant_ops.quant_int8_groupwise(qb, 1, fold=sm_scale * LOG2E)
         args["k"], args["ks"] = quant_ops.quant_int8_groupwise(kb, 1)
     if attn_mask is not None:
-        m = attn_mask.to(torch.int8) if attn_mask.dtype != torch.int8 else attn_mask
+        m = attn_mask if attn_mask.dtype == torch.bool else attn_mask != 0
         args["mask"] = _pad_to(_pad_to(m, Skp, 3), Sqp, 2)
     args.update(fold=sm_scale * LOG2E, dq_fin=sm_scale,
                 dk_fin=(1.0 / LOG2E) if quantized else sm_scale)

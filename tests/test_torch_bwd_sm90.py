@@ -38,6 +38,8 @@ JAX_BAR = 1e-4
 ORACLE_REL = 3e-2
 INT8_COS = 1.5e-3
 SM90_KEYS = {"C1-bf16", "C1-bf16-causal", "C2-bf16", "C2-bf16-causal"}
+# the window, sink and bool-mask forms of the bf16 backward: sage_bwd_sm90_masked
+SM90_MASKED_KEYS = {n for n in tbwd.LAUNCH_KEYS if "-bf16" in n} - SM90_KEYS
 Q8_SM90_KEYS = {"C1-int8", "C1-int8-causal", "C2-int8", "C2-int8-causal"}
 
 
@@ -49,13 +51,17 @@ def _configs():
 
 
 def test_route_takes_exactly_the_bf16_unmasked_keys():
+    """``bwd_sm90_route`` takes every bf16 key at head dims 64 and 128, with
+    or without a window or a mask (the unmasked ones are ``SM90_KEYS``, the
+    rest launch the masked entry); no int8 key and no head dim 256."""
     seen = set()
     for D in (64, 128, 256):
         for name, quant, causal, window, masked in _configs():
             seen.add(name)
             routed = tbwd.bwd_sm90_route(quant, masked, window, D)
-            assert routed == (name in SM90_KEYS and D != 256), (name, D)
+            assert routed == (name in SM90_KEYS | SM90_MASKED_KEYS and D != 256), (name, D)
     assert seen == set(tbwd.LAUNCH_KEYS)
+    assert len(SM90_MASKED_KEYS) == 8 and not SM90_MASKED_KEYS & Q8_SM90_KEYS
 
 
 def test_q8_route_takes_exactly_the_int8_unmasked_keys():
@@ -70,10 +76,12 @@ def test_q8_route_takes_exactly_the_int8_unmasked_keys():
 
 
 def _entry(name, D):
-    """The C entry that launches key ``name`` at head dim ``D``."""
+    """The C entry that launches key ``name`` at head dim ``D``: the int8
+    masked and windowed keys and head dim 256 stay on ``sage_attn_bwd``."""
     if D == 256:
         return "sage_attn_bwd"
     return {**dict.fromkeys(SM90_KEYS, "sage_bwd_sm90"),
+            **dict.fromkeys(SM90_MASKED_KEYS, "sage_bwd_sm90_masked"),
             **dict.fromkeys(Q8_SM90_KEYS, "sage_bwd_q8_sm90")}.get(name, "sage_attn_bwd")
 
 
@@ -82,10 +90,13 @@ def _entry(name, D):
                          [c for c in _configs() if c[0].startswith("C1")])
 def test_kernel_entry_per_configuration(monkeypatch, D, name, quant, causal, window, masked):
     """``attention_backward_kernel`` launches C1 then C2 through
-    ``sage_bwd_sm90`` (bf16) or ``sage_bwd_q8_sm90`` (int8) when routed and
+    ``sage_bwd_sm90`` (bf16), ``sage_bwd_sm90_masked`` (bf16 with a window
+    or a mask) or ``sage_bwd_q8_sm90`` (int8) when routed and
     ``sage_attn_bwd`` otherwise, and counts both under the configuration's
     launch keys.  The int8 entry is handed the codes, their copies
-    dequantized to bf16 and the row scales."""
+    dequantized to bf16 and the row scales; the masked entry each kernel's
+    own tile lists, row length and order after the shared arguments, then
+    the window and sinks."""
     calls, deq = [], []
     monkeypatch.setattr(_build, "call", lambda fn, device, *args: calls.append((fn, args)))
     real_deq = tbwd.dequant_rows
@@ -116,11 +127,17 @@ def test_kernel_entry_per_configuration(monkeypatch, D, name, quant, causal, win
     if entry == "sage_attn_bwd":
         return
     args = calls[0][1]
-    assert calls[1][1][1:] == args[1:]
     assert args[1] == D and len(args) == len(_build.SIGNATURES[entry][1]) - 1
+    own = 13 if entry == "sage_bwd_sm90_masked" else 0   # each kernel's own arguments
+    shared = args[:len(args) - own]
+    assert calls[1][1][1:len(shared)] == shared[1:]
     # (out_f32, B, Hq, Hk, Sqp, Skp, causal) and the three factors
-    assert args[-10:-3] == (1, B, Hq, Hk, Sqp, Skp, int(causal))
-    assert args[-3:] == pytest.approx((0.2, 0.125, 0.125))
+    assert shared[-10:-3] == (1, B, Hq, Hk, Sqp, Skp, int(causal))
+    assert shared[-3:] == pytest.approx((0.2, 0.125, 0.125))
+    if own:
+        # row lengths: C1 walks q tiles, C2 kv tiles; then window and sinks
+        assert (args[-11], calls[1][1][-11]) == (Sqp // 64, Skp // 64)
+        assert args[-2:] == calls[1][1][-2:] == (window, 0)
     if entry == "sage_bwd_q8_sm90":
         # q8, qd, k8, kd, v, dO, lse2, di, qs, ks: the codes and scales as
         # given, and their bf16 copies bf16(code * row scale)

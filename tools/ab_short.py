@@ -4,7 +4,7 @@
 alternated over many pairs, each reading in a process of its own, on one
 CUDA card:
 
-    python3 tools/ab_short.py --pairs 6 build/parent .
+    python3 tools/ab_short.py --pairs 6 [--rows bwd] build/parent .
 
 For each pair it runs the trees in the given order, then (next pair) in the
 reverse order, and prints one line ``SHORT <tree> <json>`` a reading:
@@ -20,7 +20,9 @@ GQA shapes (``gemma B4``, ``llama B1``, ...), the B11 rows, and last
 ``attention_q8_sm90.cu`` and their ring's ``-kvtrue`` forms, B5-int8, B2,
 B5-fp8-fusedq, the fused-Q B-pvbf16-online and the ``sageattn fp8`` call);
 then, per tree and row, the median of its readings (``MEDIAN <tree>
-<json>``).  Each tree
+<json>``).  ``--rows bwd`` takes ``tools/port_ab.py``'s C1/C2 rows
+instead: the bf16 forms, masked and not, and the int8 ones
+(``bwd_tree``).  Each tree
 builds its own kernels into its own ``build/torch_kernels/``.
 """
 
@@ -35,7 +37,7 @@ import sys
 TOOLS = os.path.dirname(os.path.abspath(__file__))
 
 
-def one_reading(tree: str) -> dict:
+def one_reading(tree: str, rows: str = "all") -> dict:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
     import torch
@@ -50,6 +52,8 @@ def one_reading(tree: str) -> dict:
     ab = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ab)
     _build.build_all()
+    if rows == "bwd":
+        return ab.bwd_tree(tree)
     with torch.inference_mode():
         res = ab.biased_rows(torch, cs)
         for shape in ("gemma", "llama"):
@@ -78,8 +82,12 @@ def one_reading(tree: str) -> dict:
 
 
 def main(argv) -> int:
+    row_set = "all"
+    if "--rows" in argv:
+        i = argv.index("--rows")
+        row_set, argv = argv[i + 1], argv[:i] + argv[i + 2:]
     if len(argv) == 3 and argv[1] == "--one":
-        print("SHORT", argv[2], json.dumps(one_reading(argv[2])), flush=True)
+        print("SHORT", argv[2], json.dumps(one_reading(argv[2], row_set)), flush=True)
         return 0
     if len(argv) < 4 or argv[1] != "--pairs":
         print(__doc__, file=sys.stderr)
@@ -88,8 +96,8 @@ def main(argv) -> int:
     readings = {t: [] for t in trees}
     for i in range(pairs):
         for tree in trees if i % 2 == 0 else trees[::-1]:
-            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree],
-                                 capture_output=True, text=True)
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--rows", row_set,
+                                  "--one", tree], capture_output=True, text=True)
             if out.returncode != 0:
                 print(out.stderr[-3000:], file=sys.stderr)
                 return out.returncode
@@ -97,7 +105,8 @@ def main(argv) -> int:
             print(line, flush=True)
             readings[tree].append(json.loads(line.split(" ", 2)[2]))
     for tree, rows in readings.items():
-        med = {k: sorted(r[k] for r in rows)[len(rows) // 2] for k in rows[0]}
+        med = {k: sorted(r[k] for r in rows)[len(rows) // 2] for k in rows[0]
+               if not isinstance(rows[0][k], dict)}   # a breakdown (``parts``) has no median
         print("MEDIAN", tree, json.dumps(med), flush=True)
     return 0
 

@@ -2,10 +2,12 @@
 """Times the port's plain attention configurations and its ``sageattn``
 entry in several checkouts, each in a process of its own, on one CUDA card.
 
-    python3 tools/port_ab.py build/parent . . build/parent
+    python3 tools/port_ab.py [--rows bwd] build/parent . . build/parent
 
-Give the trees in the order parent, change, change, parent within one run
-(a card's clocks and power drift between runs).  Each tree builds its own
+``--rows bwd`` times the C1/C2 rows alone (``bwd_rows`` and
+``q8_bwd_rows`` below, ~1 minute a tree).  Give the trees in the order
+parent, change, change, parent within one run (a card's clocks and power
+drift between runs).  Each tree builds its own
 kernels into its own ``build/torch_kernels/``.  For each tree, at the
 CogVideoX1.5 (1, 48, 17776, 64), Llama-70B GQA causal (1, 64/8, 16384,
 128) and Gemma-7B causal (1, 16, 8192, 256) shapes, it prints one line
@@ -29,14 +31,15 @@ bias), the kernel time of ``B4-float`` and its library call (``mpt
 B4-float library``: ``F.scaled_dot_product_attention`` with the bias and
 the causal mask as one float ``attn_mask``);
 
-the time (ms) of C1 and C2, each alone, in the forms that stay on
-``backward.cu`` (``-window`` with a 4,096-token window and
-``-causal-bool`` with a left-padding mask at Llama-3-8B width, (1, 32/8,
-8192, 128)) and then the bf16 forms that ``backward_sm90.cu`` takes
-(``-bf16`` at CogVideoX1.5, ``-bf16-causal`` at Llama-3-8B width), from the
-port's flash forward on the same inputs, with the library's backward (one
+the time (ms) of C1 and C2, each alone through the wrapper, in their
+masked forms (``-window`` with a 4,096-token window and ``-causal-bool``
+with a left-padding mask at Llama-3-8B width, (1, 32/8, 8192, 128); the
+kernel table's Mistral-7B window with 4 sinks, (1, 32/8, 16,384, 128), and
+left-padded batch, (4, 32/8, 4096, 128)) and then unmasked (``-bf16`` at
+CogVideoX1.5, ``-bf16-causal`` at Llama-3-8B width), from the port's
+forward on the same inputs, with the library's backward (one
 ``torch.autograd.grad`` through ``F.scaled_dot_product_attention``,
-``C1+C2 library``) at both shapes;
+``C1+C2 library``, with the masked shapes' band or mask) at each shape;
 
 for the training steps of ``chip_smoke.py``'s phase 9 with the port's
 exact attention (``flash_dot_product_attention``: the B4 forward and the
@@ -152,11 +155,17 @@ B4_FORMS = {"B4-window": dict(window=4096)}
 # B4-fp4's shapes (timed last): B, Hq, Hk, S, D, causal
 FP4_SHAPES = {"cog": CASES["cog"], "gemma": CASES["gemma"],
               "hunyuan": (1, 24, 24, 119056, 128, False)}
-# C1/C2: B, Hq, Hk, S, D, causal; the forms that stay on backward.cu first,
-# the routed bf16 forms last (as B4 above)
-BWD_SHAPES = {"cog": (1, 48, 48, 17776, 64, False), "llama8k": (1, 32, 8, 8192, 128, True)}
+# C1/C2: B, Hq, Hk, S, D, causal, timed shape by shape in this order; the
+# forms of each shape: the masked ones at Llama-3-8B width, and at the
+# kernel table's shapes (Mistral-7B's W = 4096 window with 4 sinks and the
+# smoke's left-padded Llama-3-8B batch, prompts of
+# chip_smoke.TRAIN["padded_lens"])
+BWD_SHAPES = {"cog": (1, 48, 48, 17776, 64, False), "llama8k": (1, 32, 8, 8192, 128, True),
+              "mistral": (1, 32, 8, 16384, 128, True), "padded": (4, 32, 8, 4096, 128, True)}
 BWD_FORMS = (("llama8k", "bf16-window", dict(window=4096)),
              ("llama8k", "bf16-causal-bool", dict(mask=True)),
+             ("mistral", "bf16-window", dict(window=4096, sinks=4)),
+             ("padded", "bf16-causal-bool", dict(mask=True)),
              ("cog", "bf16", {}),
              ("llama8k", "bf16-causal", {}))
 # the int8 C1/C2 (timed last): B, Hq, Hk, S, D, causal, the ring's per-pair
@@ -635,35 +644,48 @@ def biased_rows(torch, cs):
 
 
 def bwd_rows(torch, cs, st):
-    """C1's and C2's kernel ms, each alone, in each form of ``BWD_FORMS``
-    (bf16 outputs), and the library's backward at each shape."""
+    """C1's and C2's ms, each alone through ``attention_backward_kernel``
+    (the wrapper's glue included: the masked forms' tile lists), in each
+    form of ``BWD_FORMS`` (bf16 outputs), from the port's flash forward
+    with the same window (sageattn's with the same mask), and the library's
+    backward at each shape (with the form's band or mask at the masked
+    forms' own shapes)."""
     from sageattention_tpu_torch.ops import backward as tbwd
     from sageattention_tpu_torch.utils.testing import time_fn
-    inputs, res = {}, {}
+    res = {}
     for shape, (B, Hq, Hk, S, D, causal) in BWD_SHAPES.items():
         q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 1)
         do = torch.randn(q.shape, generator=torch.Generator(device="cuda").manual_seed(2),
                          device="cuda").bfloat16()
-        o, lse = st.flash_attention(q, k, v, is_causal=causal, return_lse=True)
-        inputs[shape] = (q, k, v, o, lse, do)
-    for shape, form, opt in BWD_FORMS:
-        B, Hq, Hk, S, D, causal = BWD_SHAPES[shape]
-        q, k, v, o, lse, do = inputs[shape]
-        mask = None
-        if opt.get("mask"):   # a left-padded prompt: its first S / 8 keys are padding
-            mask = (torch.arange(S, device="cuda") >= S // 8).expand(B, 1, S, S)
-        pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5,
-                          quantized=opt.get("quantized", False), attn_mask=mask)
-        pa.update(causal=causal, window=opt.get("window", 0), out_dtype=torch.bfloat16)
-        for kernel in ("C1", "C2"):
-            res[f"{shape} {kernel}-{form}"] = time_fn(
-                lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,)),
-                warmup=2, reps=5) * 1e3
-        del pa
-    for shape, (B, Hq, Hk, S, D, causal) in BWD_SHAPES.items():
-        q, k, v, o, lse, do = inputs[shape]
-        res[f"{shape} C1+C2 library"] = cs.library_bwd_ms(
-            torch, q, k, v, do, {"is_causal": causal, "sm_scale": D ** -0.5})
+        lib = {"is_causal": causal, "sm_scale": D ** -0.5}
+        for form_shape, form, opt in BWD_FORMS:
+            if form_shape != shape:
+                continue
+            mask, fwd = None, dict(is_causal=causal, return_lse=True)
+            if opt.get("mask"):   # left-padded prompts: the smoke's lengths, or S / 8 of padding
+                lens = cs.TRAIN["padded_lens"] if shape == "padded" else [S - S // 8] * B
+                pad = S - torch.tensor(lens, device="cuda")
+                mask = torch.arange(S, device="cuda")[None, None, None, :] >= pad[:, None, None,
+                                                                                  None]
+                mask = mask.expand(B, 1, S, S)
+                o, lse = st.sageattn(q, k, v, attn_mask=mask, **fwd)
+            else:
+                o, lse = st.flash_attention(q, k, v, sliding_window=opt.get("window", 0),
+                                            attention_sinks=opt.get("sinks", 0), **fwd)
+            pa = tbwd.prepare(q, k, v, o, lse, do, sm_scale=D ** -0.5, attn_mask=mask)
+            pa.update(causal=causal, window=opt.get("window", 0), sinks=opt.get("sinks", 0),
+                      out_dtype=torch.bfloat16)
+            for kernel in ("C1", "C2"):
+                res[f"{shape} {kernel}-{form}"] = time_fn(
+                    lambda: tbwd.attention_backward_kernel(**pa, kernels=(kernel,)),
+                    warmup=2, reps=5) * 1e3
+            if shape in ("mistral", "padded"):
+                lib.update(window=opt.get("window", 0), sinks=opt.get("sinks", 0),
+                           attn_mask=mask)
+            del pa, o, lse
+        res[f"{shape} C1+C2 library"] = cs.library_bwd_ms(torch, q, k, v, do, lib)
+        del q, k, v, do
+        torch.cuda.empty_cache()
     return res
 
 
@@ -786,13 +808,38 @@ def call_parts(torch, _build, call, reps=10, extra=None):
     return {key: sorted(r[key] for r in rows)[len(rows) // 2] for key in rows[0]}
 
 
+def bwd_tree(tree: str) -> dict:
+    """``--rows bwd``: the C1/C2 rows alone (``bwd_rows``, ``q8_bwd_rows``)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import chip_smoke as cs
+    import sageattention_tpu_torch as st
+    from sageattention_tpu_torch.ops import _build
+    if not _build.__file__.startswith(tree):
+        raise RuntimeError(f"imported {_build.__file__}, not the tree {tree}")
+    _build.build_all()
+    with torch.no_grad():
+        res = bwd_rows(torch, cs, st)
+        torch.cuda.empty_cache()
+        res.update(q8_bwd_rows(torch, cs, st, _build))
+    return res
+
+
+ROWS = {"all": one_tree, "bwd": bwd_tree}
+
+
 def main(argv) -> int:
+    rows = "all"
+    if len(argv) > 2 and argv[1] == "--rows":
+        rows, argv = argv[2], argv[:1] + argv[3:]
     if len(argv) == 3 and argv[1] == "--one":
-        print("AB", argv[2], json.dumps(one_tree(argv[2])), flush=True)
+        print("AB", argv[2], json.dumps(ROWS[rows](argv[2])), flush=True)
         return 0
     rc = 0
     for tree in argv[1:]:
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree]).returncode
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--rows", rows, "--one",
+                              tree]).returncode
     return rc
 
 
