@@ -11,7 +11,8 @@ Phases (any failure exits non-zero):
 2. build: compiles the port's CUDA kernels from ``sageattention_tpu_torch/csrc``
    and prints ``ptxas``'s registers and spills of ``flash_sm90.cu``,
    ``attention_sm90.cu``, ``attention_q8_sm90.cu``,
-   ``paged_decode_sm90.cu`` and ``decode_sm90.cu`` (a spill fails the run);
+   ``paged_decode_sm90.cu``, ``decode_sm90.cu``, ``backward_sm90.cu`` and
+   ``prep_sm90.cu`` (a spill fails the run);
 3. main path, with every kernel's launch count set to 0 just before and read
    just after.  At the full widths of CogVideoX1.5 joint attention
    (1, 48, 17776, 64) and a Llama-70B GQA causal prefill (64/8 heads, 16,384
@@ -266,7 +267,20 @@ Phases (any failure exits non-zero):
    tail, GQA 4:1, masks with dead rows and tiles, causal and not, per
    head, a 128 x 128 block-sparse mask) and a tail with f32 outputs through
    ``attention_backward`` against the same call on the CPU.  Its rows are
-   the masked keys' (9f checks their launches but leaves the times to it).
+   the masked keys' (9f checks their launches but leaves the times to it);
+23. (run last) A1 and A2 on ``csrc/prep_sm90.cu`` (slice 19; one launch a
+   call, each element of K or V read once): ``sageattn`` at CogVideoX1.5,
+   Llama-70B GQA and Gemma-7B (16 heads, hd 256, 8,192 tokens), each
+   counted on its own, its A1 and A2 calls reaching ``sage_prep_sm90`` and
+   never ``sage_prep_kv``; A1 (with and without capmax) and A2 on their K
+   and V against the plain versions (codes equal in >= 99.9% of places and
+   never more than 1 apart, stats to rtol 1e-5 / atol 1e-6) and, bit for
+   bit, ``prep_kv.cu``'s first version, each kernel's device time per call
+   beside the first version's, the plain version's and the bound; then the
+   largest slices on the route (288 chunks at D = 64, 144 at 128, 72 at
+   256, f32 at 64, f32 at 128 with a block for every chunk), one chunk,
+   s_true < S with chunks of padding rows only, f16 (widened), NHD views
+   and a constant slice.  Its A1/A2 rows replace phase 4's.
 
 Each attention kernel is launched once on all heads of its shape and its
 outputs on sampled heads are held to its plain version on those heads (the
@@ -368,7 +382,7 @@ def main() -> int:
     _build.build_all()
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     for source in ("flash_sm90", "attention_sm90", "attention_q8_sm90", "attention_online_sm90",
-                   "paged_decode_sm90", "decode_sm90", "backward_sm90"):
+                   "paged_decode_sm90", "decode_sm90", "backward_sm90", "prep_sm90"):
         sm90_ptxas(source)   # registers; a spill fails the run
 
     def timed_phase(what, fn, *args):
@@ -404,6 +418,7 @@ def main() -> int:
         new += timed_phase("phase 18", run_pvbf16_d1_sm90, torch, st, totals)
         new += timed_phase("phase 20", run_b11_sm90, torch, st, totals)
         new += timed_phase("phase 21", run_online_sm90, torch, st, totals)
+        new += timed_phase("phase 23", run_prep_sm90, torch, st, totals)
     kernels = [e for e in kernels if e["name"] not in {n["name"] for n in new}] + new
     for e in kernels:   # launches over every counted path (a form a key shares: its own)
         e["launches"] = totals.get(e["name"], e["launches"])
@@ -5210,6 +5225,169 @@ def run_online_sm90(torch, st, totals):
     print(f"     online Hopper forms' edge cases: max_abs_err {err:.3e}", flush=True)
     for e in entries:
         e["max_abs_err"] = max(e["max_abs_err"], err)
+    return entries
+
+
+# ------------------------------------------------ slice 19 (phase 23) ----
+
+SRC_PREP_SM90 = "sageattention_tpu_torch/csrc/prep_sm90.cu"
+# ~25 ms of spin on the card: longer than the host takes to queue 20 prep
+# calls (~0.1 ms each), so the events that follow time the device alone
+PREP_SPIN_CYCLES = 50_000_000
+# the C entries an A1/A2 call on the route may and may not reach
+PREP_ENTRIES = {"sage_prep_sm90": True, "sage_prep_kv": False}
+# A1/A2 at the main paths' K/V (activation-like, from realistic_qkv): B, Hq,
+# Hk, S, D, the attention call's causal flag
+PREP_MAIN = {"CogVideoX1.5": COG_SHAPE + (False,),
+             "Llama-70B GQA": (1, 64, 8, 16384, 128, True),
+             "Gemma-7B": (1, 16, 16, 8192, 256, True)}
+# the edges: [B, H, S, D] (stored as [B, S, H, D] when NHD), s_true, dtype,
+# NHD storage, a constant slice
+PREP_EDGES = {
+    "largest slice, D = 64 (288 chunks)": ((1, 2, 73728, 64), 73728, "bf16", False, False),
+    "largest slice, D = 128": ((1, 2, 36864, 128), 36800, "bf16", False, False),
+    "largest slice, D = 256": ((1, 2, 18432, 256), 18432, "bf16", False, False),
+    "largest f32 slice, D = 64": ((1, 2, 73728, 64), 73000, "f32", False, False),
+    "f32, D = 128, a block for every chunk": ((1, 2, 33792, 128), 33792, "f32", False, False),
+    "one chunk": ((1, 8, 256, 128), 256, "bf16", False, False),
+    "one short chunk": ((2, 3, 200, 64), 200, "bf16", False, False),
+    "s_true < S, 4 chunks of padding": ((1, 4, 4096, 64), 3000, "bf16", False, False),
+    "s_true < S, f16 widened": ((2, 3, 777, 128), 700, "f16", False, False),
+    "s_true < S, D = 256": ((1, 3, 1280, 256), 1100, "bf16", False, False),
+    "NHD view": ((1, 8, 3000, 128), 2900, "bf16", True, False),
+    "NHD view, f32": ((2, 4, 1000, 64), 1000, "f32", True, False),
+    "constant slice": ((1, 2, 1024, 64), 1000, "bf16", False, True)}
+
+
+def prep_device_ms(torch, fn, reps=20):
+    """Device time per call of what ``fn`` launches, with the host's work
+    left out: a spin kernel holds the card while the host queues ``reps``
+    calls between two CUDA events (median of 3; ``torch.profiler`` drops
+    kernels this late in the run)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(PREP_SPIN_CYCLES)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        runs.append(s.elapsed_time(e) / reps)
+    return sorted(runs)[1]
+
+
+def prep_outputs_ok(torch, what, got, plain, old):
+    """A1/A2's outputs against the plain version (quant_entry's bars) and
+    ``prep_kv.cu``'s first version (bit for bit: the same sums in the same
+    order).  Returns the largest difference from the plain version."""
+    same, worst = _codes_ok(torch, got[0], plain[0])
+    stats = [(x, y) for x, y in zip(got[1:], plain[1:]) if x is not None]
+    ok = (same >= 0.999 and worst <= 1
+          and all(torch.allclose(x, y, rtol=1e-5, atol=1e-6) for x, y in stats))
+    exact = len(got) == len(old) and all(torch.equal(x, y) for x, y in zip(got, old))
+    check(ok and exact, f"{what}: {same:.9f} of codes equal to the plain version's, max code "
+                        f"diff {worst}, stats within rtol 1e-5 / atol 1e-6; prep_kv.cu's "
+                        f"outputs equal bit for bit: {exact}")
+    return max([float(worst)] + [float((x - y).abs().max()) for x, y in stats])
+
+
+def prep_pair(torch, what, x, s_true, totals):
+    """A1 (with and without capmax) and A2 on ``x`` through the public
+    entries, counted (``sage_prep_sm90`` called, ``sage_prep_kv`` never),
+    against the plain versions and ``prep_kv.cu``.  Returns the largest
+    difference from the plain version."""
+    from sageattention_tpu_torch.ops import quant_fused as qf
+    check(qf.prep_sm90_route(qf._kernel_input(x).dtype, x.shape[3], x.shape[2],
+                             qf._sm_count(x.device)), f"{what}: on prep_sm90_route")
+    (k1, k0, v1), _ = counted_path(
+        torch, f"{what}: A1, A1 without capmax, A2", ("A1", "A2"), {}, totals,
+        lambda: (qf.prep_k_onepass(x, s_true, True), qf.prep_k_onepass(x, s_true),
+                 qf.prep_v_onepass(x, s_true)), entries=PREP_ENTRIES)
+    exact_counts(what, read_counts(), dict(A1=2, A2=1))
+    old_k = qf._launch(x, s_true, per_channel=False, capmax=True)
+    old_v = qf._launch(x, s_true, per_channel=True, capmax=False)
+    err = prep_outputs_ok(torch, f"{what} A1", k1, qf.prep_k_onepass_plain(x, s_true, True),
+                          old_k)
+    err = max(err, prep_outputs_ok(torch, f"{what} A1 without capmax", k0,
+                                   qf.prep_k_onepass_plain(x, s_true), old_k[:3]))
+    return max(err, prep_outputs_ok(torch, f"{what} A2", v1, qf.prep_v_onepass_plain(x, s_true),
+                                    old_v[:3]))
+
+
+def run_prep_sm90(torch, st, totals):
+    """Phase 23 (slice 19): A1 and A2 on ``csrc/prep_sm90.cu``.  At the main
+    paths' shapes (:data:`PREP_MAIN`), ``sageattn`` counted on its own (its
+    A1 and A2 calls reach ``sage_prep_sm90`` and never ``sage_prep_kv``),
+    then A1 (with and without capmax) and A2 on its K and V against the
+    plain versions and ``prep_kv.cu``'s first version (:func:`prep_pair`),
+    each kernel's device time per call (:func:`prep_device_ms`), its call's
+    time, ``prep_kv.cu``'s on the same inputs, the plain version's and the
+    bound; then :data:`PREP_EDGES` the same way.  Returns the JSON entries
+    of A1 and A2 (at CogVideoX1.5; the other shapes in their ``shape``)."""
+    from sageattention_tpu_torch.ops import quant_fused as qf
+    rows, errs = {"A1": [], "A2": []}, []
+    for i, (label, (B, Hq, Hk, S, D, causal)) in enumerate(PREP_MAIN.items()):
+        q, k, v = realistic_qkv(torch, B, Hq, Hk, S, D, SEED + 150 + i)
+        what = f"{label} ({B},{Hq}/{Hk},{S},{D})"
+        out, _ = counted_path(torch, f"{what}: sageattn", ("A1", "A2"), {}, totals,
+                              lambda: st.sageattn(q, k, v, is_causal=causal),
+                              entries=PREP_ENTRIES)
+        exact_counts(what, read_counts(), dict(A1=1, A2=1, A3=0, A4=0))
+        check(bool(torch.isfinite(out).all()) and out.shape == q.shape,
+              f"{what}: sageattn's output finite, of q's shape")
+        del out
+        errs.append(prep_pair(torch, f"{what} K", k, S, totals))
+        errs.append(prep_pair(torch, f"{what} V", v, S, totals))
+        for name, x, new, old, plain in (
+                ("A1", k, lambda: qf.prep_k_onepass(k, S, True),
+                 lambda: qf._launch(k, S, False, True),
+                 lambda: qf.prep_k_onepass_plain(k, S, True)),
+                ("A2", v, lambda: qf.prep_v_onepass(v, S),
+                 lambda: qf._launch(v, S, True, False),
+                 lambda: qf.prep_v_onepass_plain(v, S))):
+            t = dict(ms=prep_device_ms(torch, new), old=prep_device_ms(torch, old),
+                     call=kernel_ms(new), old_call=kernel_ms(old), plain=time_once(torch, plain))
+            t["bound"] = bytes_bound(nbytes(x) + x.numel())
+            rows[name].append((what, t))
+            print(f"     {name} at {what}: prep_sm90.cu {t['ms']:.4f} ms on the device (the call "
+                  f"{t['call']:.4f}), prep_kv.cu {t['old']:.4f} (the call {t['old_call']:.4f}), "
+                  f"plain {t['plain']:.3f}, bound {t['bound'][0]:.4f} ({t['bound'][1]})",
+                  flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 160)
+    dtypes = {"bf16": torch.bfloat16, "f32": torch.float32, "f16": torch.float16}
+    for label, ((B, H, S, D), s_true, dt, nhd, const) in PREP_EDGES.items():
+        shape = (B, S, H, D) if nhd else (B, H, S, D)
+        if const:
+            x = torch.full(shape, 0.75, device="cuda")
+        else:
+            x = torch.randn(*shape, generator=g, device="cuda") * 2.0
+            x[..., 7] += 4.0
+        x = x.to(dtypes[dt])
+        x = x.transpose(1, 2) if nhd else x
+        errs.append(prep_pair(torch, f"{label} {tuple(x.shape)} s_true={s_true} {dt}"
+                                     f"{' NHD' if nhd else ''}", x, s_true, totals))
+        del x
+    torch.cuda.empty_cache()
+    entries = []
+    for name, runs in rows.items():
+        what, t = runs[0]
+        more = "; ".join(f"{w}: {u['ms']:.4f} ms (call {u['call']:.4f}; prep_kv.cu {u['old']:.4f}, "
+                         f"call {u['old_call']:.4f}; plain {u['plain']:.3f}; bound "
+                         f"{u['bound'][0]:.4f})" for w, u in runs[1:])
+        entries.append({"name": name, "route": "cuda", "source": SRC_PREP_SM90,
+                        "replaces": TPU_KERNELS[name], "launches": 0,
+                        "max_abs_err": max(errs), "ms": t["ms"], "plain_ms": t["plain"],
+                        "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                        "library_ms": None,
+                        "shape": f"{what}; device time per call; the call "
+                                 f"{t['call']:.4f} ms; prep_kv.cu {t['old']:.4f} ms (the call "
+                                 f"{t['old_call']:.4f}); {more}"})
     return entries
 
 

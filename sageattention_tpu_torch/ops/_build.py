@@ -26,10 +26,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("prep_kv", "quant", "attention", "attention_q8", "attention_ext", "attention_q8_ext",
-           "attention_ring", "flash_sm90", "attention_sm90", "attention_q8_sm90",
-           "attention_online_sm90", "decode", "decode_sm90", "paged_decode_sm90", "backward",
-           "backward_sm90", "backward_q8_sm90")
+SOURCES = ("prep_kv", "prep_sm90", "quant", "attention", "attention_q8", "attention_ext",
+           "attention_q8_ext", "attention_ring", "flash_sm90", "attention_sm90",
+           "attention_q8_sm90", "attention_online_sm90", "decode", "decode_sm90",
+           "paged_decode_sm90", "backward", "backward_sm90", "backward_q8_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
@@ -113,6 +113,10 @@ _BWD_Q8_SM90_ARGS = [_I] * 2 + [_P] * 13 + [_I] * 7 + [_F] * 3 + [_P]
 SIGNATURES = {
     "sage_prep_kv": ("prep_kv", [_I, _I, _I, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
                                  _P, _P, _P, _P, _P, _P, _P, _P]),
+    # (per_channel, capmax, dtype), x, 3 strides, (B, H, S, s_true, D), inv_s,
+    # grid, (part, ws, out, mean, amax, cap), stream
+    "sage_prep_sm90": ("prep_sm90", [_I] * 3 + [_P] + [_LL] * 3 + [_I] * 5 + [_F, _I]
+                       + [_P] * 7),
     "sage_stats2": ("prep_kv", [_I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _I, _I, _I, _I, _F]
                     + [_P] * 6),
     "sage_quant_kv": ("prep_kv", [_I, _I, _P, _LL, _LL, _LL, _P, _LL, _LL, _LL] + [_I] * 5
@@ -138,6 +142,7 @@ SIGNATURES = {
     "sage_bwd_q8_sm90": ("backward_q8_sm90", _BWD_Q8_SM90_ARGS),
 }
 ERROR_STRINGS = {"prep_kv": "sage_prep_error_string",
+                 "prep_sm90": "sage_prep_sm90_error_string",
                  "quant": "sage_quant_error_string",
                  "attention": "sage_attn_error_string",
                  "attention_q8": "sage_attn_q8_error_string",

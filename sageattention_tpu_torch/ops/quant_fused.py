@@ -7,13 +7,18 @@ one-pass kernels while a padded K/V slice holds at most ``ONEPASS_MAX_ELS``
 elements, and the two-pass pair past it: A3 gives the channel stats of K
 and V in one launch, torch glue turns them into scales, and A4 quantizes K
 and V in one launch.  Each wrapper takes the plain PyTorch version for a CPU
-tensor and launches the CUDA kernel (``csrc/prep_kv.cu``) for a CUDA tensor;
-there is no fallback between the two.  ``launches`` on each wrapper counts
-its kernel launches (one call of A3 launches a partial pass and a finish,
-and counts one).
+tensor and launches a CUDA kernel for a CUDA tensor; there is no fallback
+between the two.  A1 and A2 launch ``csrc/prep_sm90.cu`` (one launch, each
+element read once) where :func:`prep_sm90_route` takes the input, and
+``csrc/prep_kv.cu``'s first version (a partial pass, then the quantizer)
+off it; A3 and A4 launch ``csrc/prep_kv.cu``.  ``launches`` on each wrapper
+counts its calls that reached a kernel (one call of A3 launches a partial
+pass and a finish, and counts one).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -73,23 +78,147 @@ def _check(x: torch.Tensor, s_true: int):
         raise ValueError(f"s_true {s_true} out of range for S={x.shape[2]}")
 
 
-def _launch(x: torch.Tensor, s_true: int, per_channel: bool, capmax: bool):
-    B, H, S, D = x.shape
+# ------------------------------------- prep_sm90.cu: one launch, one read ----
+
+SM90_ROWS = 256            # rows of a chunk, the partials' rows (A3's)
+_SMEM_SM = 233472          # shared memory of an H100 SM
+_SMEM_BLOCK = 232448       # the most one block may take
+_SMEM_RESERVED = 1024      # the runtime's share of each block
+_MAX_BPS = 4               # 64 registers a thread
+
+
+def prep_sm90_smem(elt: int, D: int, bufs: int = 1) -> int:
+    """Dynamic shared memory of a ``prep_sm90.cu`` block for ``elt``-byte
+    inputs: ``bufs`` chunk buffers (256 rows each), the 2,048-float
+    reduction buffer, the slice's means and inverse scales, and the
+    barriers and counters."""
+    return bufs * SM90_ROWS * D * elt + 2048 * 4 + 2 * 256 * 4 + 64
+
+
+def _fit(smem: int) -> int:
+    if smem > _SMEM_BLOCK:
+        return 0
+    return min(_MAX_BPS, _SMEM_SM // (smem + _SMEM_RESERVED))
+
+
+def prep_sm90_layout(elt: int, D: int):
+    """``(buffers a block, blocks an SM)`` of ``prep_sm90.cu`` (its ``Cfg``):
+    two chunk buffers where they let an SM hold more chunks than one does,
+    as many blocks as the shared memory fits, at most 4; no block where one
+    does not fit."""
+    one, two = _fit(prep_sm90_smem(elt, D, 1)), _fit(prep_sm90_smem(elt, D, 2))
+    return (2, two) if 2 * two > one else (1, one)
+
+
+def prep_sm90_grid(elt: int, D: int, n_sms: int) -> int:
+    """The persistent grid the wrapper asks for: every block the card holds
+    at once."""
+    return n_sms * prep_sm90_layout(elt, D)[1]
+
+
+def prep_sm90_route(dtype: torch.dtype, D: int, S: int, n_sms: int) -> bool:
+    """Whether A1/A2 on a ``[B, H, S, D]`` input that the kernel reads as
+    ``dtype`` (bf16 or f32; f16 is widened to f32) run on ``prep_sm90.cu``
+    on a card of ``n_sms`` SMs: its blocks wait on their slice's statistics
+    holding their chunks, so every chunk of a slice must be held at once.
+    On an H100 (132 SMs) that takes bf16 at D = 64/128/256 and f32 at D =
+    64 up to ``ONEPASS_MAX_ELS``, and f32 at D = 128 up to 33,792 rows; f32
+    at D = 256 does not fit a block."""
+    if dtype not in (torch.bfloat16, torch.float32) or D not in (64, 128, 256):
+        return False
+    elt = 2 if dtype == torch.bfloat16 else 4
+    return -(-S // SM90_ROWS) <= prep_sm90_grid(elt, D, n_sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+_workspaces: dict = {}   # (device, stream) -> int32 counters
+
+
+def _counters(dev: torch.device, n_slices: int) -> torch.Tensor:
+    """The kernel's workspace, kept per device and stream: a ticket, an exit
+    count, a launch count, and each slice's arrival count and flag (``3 + 2
+    * n_slices`` int32).  Each launch leaves the ticket and the counts at
+    zero and raises a slice's flag to its own launch count, so a call
+    launches no memset; the buffer is zeroed once, and again when a call
+    has more slices."""
+    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
+    ws = _workspaces.get((dev, stream))
+    if ws is None or ws.numel() < 3 + 2 * n_slices:
+        ws = torch.zeros(3 + 2 * max(n_slices, 1024), dtype=torch.int32, device=dev)
+        _workspaces[(dev, stream)] = ws
+    return ws
+
+
+def _kernel_input(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as the prep kernels read it: bf16 or f32 (f16 widened, exact),
+    16-byte aligned rows."""
+    D = x.shape[3]
     if D not in (64, 128, 256):
         raise NotImplementedError(f"prep kernels take head_dim 64/128/256, got {D}")
     if x.dtype == torch.float16:
-        x = x.float()   # exact; the kernel reads bf16 or f32
+        x = x.float()
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"prep kernels take float inputs, got {x.dtype}")
-    x = _build.vector_aligned(x)
+    return _build.vector_aligned(x)
+
+
+def _prep(x: torch.Tensor, s_true: int, per_channel: bool, capmax: bool):
+    """A1 (``per_channel=False``) or A2 on a CUDA tensor: ``prep_sm90.cu``
+    on the route, ``prep_kv.cu`` off it.  Returns ``(codes, mean, amax,
+    capmax or None)``."""
+    x = _kernel_input(x)
+    n_sms = _sm_count(x.device)
+    if prep_sm90_route(x.dtype, x.shape[3], x.shape[2], n_sms):
+        return _launch_sm90(x, s_true, per_channel, capmax, n_sms)
+    return _launch(x, s_true, per_channel, capmax)
+
+
+def _outputs(x: torch.Tensor, per_channel: bool, capmax: bool, zero_cap: bool):
+    B, H, S, D = x.shape
     dev = x.device
-    nsplit = -(-s_true // 256)
-    scratch = torch.empty((3, B * H * nsplit * D), dtype=torch.float32, device=dev)
     out = torch.empty((B, H, S, D), dtype=torch.int8, device=dev)
     mean = torch.empty((B, H, 1, D), dtype=torch.float32, device=dev)
     amax = torch.empty((B, H, 1, D) if per_channel else (B, H, 1, 1),
                        dtype=torch.float32, device=dev)
-    cap = torch.zeros((B, H, 1, 1), dtype=torch.float32, device=dev) if capmax else None
+    cap = None
+    if capmax:
+        cap = (torch.zeros if zero_cap else torch.empty)((B, H, 1, 1), dtype=torch.float32,
+                                                         device=dev)
+    return out, mean, amax, cap
+
+
+def _launch_sm90(x: torch.Tensor, s_true: int, per_channel: bool, capmax: bool, n_sms: int):
+    """One launch of ``prep_sm90.cu`` on ``x`` (as :func:`_kernel_input`
+    gives it).  The kernel writes capmax itself, so ``cap`` is not zeroed."""
+    B, H, S, D = x.shape
+    elt = x.element_size()
+    ns, nq = -(-s_true // SM90_ROWS), -(-S // SM90_ROWS)
+    grid = min(prep_sm90_grid(elt, D, n_sms), B * H * nq)
+    part = torch.empty((3, B * H * ns * D), dtype=torch.float32, device=x.device)
+    ws = _counters(x.device, B * H)
+    out, mean, amax, cap = _outputs(x, per_channel, capmax, zero_cap=False)
+    _build.call(
+        "sage_prep_sm90", x.device, int(per_channel), int(capmax),
+        0 if x.dtype == torch.bfloat16 else 1, x.data_ptr(), x.stride(0), x.stride(1),
+        x.stride(2), B, H, S, s_true, D, float(np.float32(1.0 / s_true)), grid,
+        part.data_ptr(), ws.data_ptr(), out.data_ptr(), mean.data_ptr(), amax.data_ptr(),
+        cap.data_ptr() if cap is not None else None)
+    return out, mean, amax, cap
+
+
+def _launch(x: torch.Tensor, s_true: int, per_channel: bool, capmax: bool):
+    """``prep_kv.cu``'s first version: a partial pass, then the quantizer
+    (each block finishing its slice's statistics)."""
+    x = _kernel_input(x)
+    B, H, S, D = x.shape
+    dev = x.device
+    nsplit = -(-s_true // 256)
+    scratch = torch.empty((3, B * H * nsplit * D), dtype=torch.float32, device=dev)
+    out, mean, amax, cap = _outputs(x, per_channel, capmax, zero_cap=True)
     _build.call(
         "sage_prep_kv", dev, int(per_channel), int(capmax),
         0 if x.dtype == torch.bfloat16 else 1, x.data_ptr(),
@@ -114,7 +243,7 @@ def prep_k_onepass(k: torch.Tensor, s_true: int, with_capmax: bool = False):
         return prep_k_onepass_plain(k, s_true, with_capmax)
     if k.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {k.device}")
-    out, mean, amax, cap = _launch(k, s_true, per_channel=False, capmax=with_capmax)
+    out, mean, amax, cap = _prep(k, s_true, per_channel=False, capmax=with_capmax)
     prep_k_onepass.launches += 1
     return (out, mean, amax, cap) if with_capmax else (out, mean, amax)
 
@@ -130,7 +259,7 @@ def prep_v_onepass(v: torch.Tensor, s_true: int):
         return prep_v_onepass_plain(v, s_true)
     if v.device.type != "cuda":
         raise NotImplementedError(f"no kernel for device {v.device}")
-    out, mean, amax, _ = _launch(v, s_true, per_channel=True, capmax=False)
+    out, mean, amax, _ = _prep(v, s_true, per_channel=True, capmax=False)
     prep_v_onepass.launches += 1
     return out, mean, amax
 

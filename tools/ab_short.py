@@ -22,7 +22,8 @@ B5-fp8-fusedq, the fused-Q B-pvbf16-online and the ``sageattn fp8`` call);
 then, per tree and row, the median of its readings (``MEDIAN <tree>
 <json>``).  ``--rows bwd`` takes ``tools/port_ab.py``'s C1/C2 rows
 instead: the bf16 forms, masked and not, and the int8 ones
-(``bwd_tree``).  Each tree
+(``bwd_tree``); ``--rows prep`` its K/V prep rows (``prep_tree``, without
+the ``sageattn`` calls).  Each tree
 builds its own kernels into its own ``build/torch_kernels/``.
 """
 
@@ -54,6 +55,8 @@ def one_reading(tree: str, rows: str = "all") -> dict:
     _build.build_all()
     if rows == "bwd":
         return ab.bwd_tree(tree)
+    if rows == "prep":
+        return ab.prep_tree(tree, calls=False)
     with torch.inference_mode():
         res = ab.biased_rows(torch, cs)
         for shape in ("gemma", "llama"):

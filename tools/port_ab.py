@@ -2,10 +2,11 @@
 """Times the port's plain attention configurations and its ``sageattn``
 entry in several checkouts, each in a process of its own, on one CUDA card.
 
-    python3 tools/port_ab.py [--rows bwd] build/parent . . build/parent
+    python3 tools/port_ab.py [--rows bwd|prep] build/parent . . build/parent
 
 ``--rows bwd`` times the C1/C2 rows alone (``bwd_rows`` and
-``q8_bwd_rows`` below, ~1 minute a tree).  Give the trees in the order
+``q8_bwd_rows`` below, ~1 minute a tree); ``--rows prep`` the K/V prep
+rows alone (``prep_rows`` below).  Give the trees in the order
 parent, change, change, parent within one run (a card's clocks and power
 drift between runs).  Each tree builds its own
 kernels into its own ``build/torch_kernels/``.  For each tree, at the
@@ -826,7 +827,80 @@ def bwd_tree(tree: str) -> dict:
     return res
 
 
-ROWS = {"all": one_tree, "bwd": bwd_tree}
+# the prep rows' shapes: B, Hq, Hk, S, D, causal
+PREP_CASES = {"cog": CASES["cog"], "llama": CASES["llama"]}
+
+
+def device_ms(torch, fn, reps=20):
+    """Device time per call of what ``fn`` launches, with the host's work
+    left out: a ~25 ms spin kernel holds the card while the host queues
+    ``reps`` calls between two CUDA events (median of 3)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(3):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        torch.cuda.synchronize()
+        runs.append(s.elapsed_time(e) / reps)
+    return sorted(runs)[1]
+
+
+def prep_rows(torch, cs, st, calls=True):
+    """At CogVideoX1.5 and Llama-70B GQA (``PREP_CASES``) on the K and V of
+    ``chip_smoke.realistic_qkv``: the K/V prep's kernels as ``sageattn``
+    calls them (A1 with capmax and A2; A3 + A4, the two-pass pair; A5 and
+    the A6 group on K, as phase 4 calls them), each as its device time per
+    call (``<shape> <row> device``, :func:`device_ms`) and its call's time
+    (``<shape> <row>``, CUDA events over back-to-back calls); then, with
+    ``calls``, ``sageattn``'s time per call and where it goes (``parts``)."""
+    from sageattention_tpu_torch.ops import _build
+    from sageattention_tpu_torch.ops import quant_fused as qf
+    from sageattention_tpu_torch.ops import quant_kernels as qk
+    from sageattention_tpu_torch.utils.testing import time_fn
+    res = {}
+    for shape, (B, Hq, Hk, S, D, causal) in PREP_CASES.items():
+        q, k, v = cs.realistic_qkv(torch, B, Hq, Hk, S, D, 0)
+        km, _ = qk.channel_stats(k, S)
+        rows = {"A1": lambda: qf.prep_k_onepass(k, S, with_capmax=True),
+                "A2": lambda: qf.prep_v_onepass(v, S),
+                "A3+A4": lambda: cs.two_pass_prep(torch, k, v, S),
+                "A5": lambda: qk.channel_stats(k, S),
+                "A6-group": lambda: qk.quant_int8_groupwise(k, 16, sub=km, with_capmax=True,
+                                                            s_true=S)}
+        for name in ("A3+A4", "A5", "A6-group", "A2", "A1"):   # the changed kernels last
+            res[f"{shape} {name} device"] = device_ms(torch, rows[name])
+            res[f"{shape} {name}"] = time_fn(rows[name], warmup=3, reps=20) * 1e3
+        if calls:
+            call = lambda: st.sageattn(q, k, v, is_causal=causal)  # noqa: E731
+            res[f"{shape} sageattn"] = time_fn(call, warmup=2, reps=10) * 1e3
+            res[f"{shape} sageattn parts"] = call_parts(torch, _build, call)
+        del q, k, v
+        torch.cuda.empty_cache()
+    return res
+
+
+def prep_tree(tree: str, calls: bool = True) -> dict:
+    """``--rows prep``: the K/V prep rows alone (``prep_rows``)."""
+    tree = os.path.abspath(tree)
+    sys.path.insert(0, tree)
+    import torch
+    import chip_smoke as cs
+    import sageattention_tpu_torch as st
+    from sageattention_tpu_torch.ops import _build
+    if not _build.__file__.startswith(tree):
+        raise RuntimeError(f"imported {_build.__file__}, not the tree {tree}")
+    _build.build_all()
+    with torch.inference_mode():
+        return prep_rows(torch, cs, st, calls)
+
+
+ROWS = {"all": one_tree, "bwd": bwd_tree, "prep": prep_tree}
 
 
 def main(argv) -> int:
